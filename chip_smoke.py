@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
-    python3 chip_smoke.py --kernel-only   # build + kernel-vs-plain phase only
+    python3 chip_smoke.py --kernel-only   # build + kernel-vs-plain phases only
 
 Phases, each failing loudly:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build every CUDA source of mofanerf_tpu_torch/csrc with nvcc (sm_90a),
-     printing the build time and ptxas' register / shared-memory report;
-  3. kernel: the serving kernel against its plain PyTorch version on the
-     card at the serving width (D=4, W=128, multires=8, S=32, 16384 rays,
-     hit and miss rays, unnormalised directions), bf16 and f32, with and
-     without white background; times both with CUDA events;
-  4. path: serves a seeded bf16 student artifact through the port's
-     run_render CLI (4 views at 512x512), then a 3-pose x 3-expression rig
-     of a code-conditioned student through render_path_serve; checks the
-     outputs, that the kernel's launch count rose by the expected number,
-     and that a small frame agrees with the CPU render.
+     one nvcc a source, started together, printing the build time and ptxas'
+     register / shared-memory report;
+  3. kernels, each against its plain PyTorch version on the card, timed with
+     CUDA events beside its bound:
+     - the serving kernel at the serving width (D=4, W=128, multires=8, S=32,
+       16384 rays, hit and miss rays, unnormalised directions), bf16 and f32,
+       with and without white background;
+     - the field kernel at full width, both of the teacher's fields (coarse
+       8x256 with 64 samples a ray, fine 10x1024 with 128), bf16 and f32, at
+       a ragged shape and at the packet shape of the teacher path; bf16 once
+       more at the packet shape with contracting weights (x 0.4, atol 5e-3);
+  4. serving path: a seeded bf16 student artifact through the run_render CLI
+     (4 views at 512x512), then a 3-pose x 3-expression rig of a
+     code-conditioned student through render_path_serve;
+  5. teacher path: a seeded full-width model, a seeded UV map through the
+     texture encoder, then the run_render CLI's teacher route (2 views) and
+     render_path with a conditioning a pose (2 poses, 2 expressions), at
+     512x512 with 64 + 64 samples.
+  Both path phases check shapes, ranges, that the kernel's launch count is
+  the expected one, and that a small frame agrees with the CPU render.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,6 +52,16 @@ PEAK_BYTES = 3.35e12
 D, W, MR, S = 4, 128, 8, 32
 N_KERNEL = 16384
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+# the teacher's two fields at full width: (depth, width, samples a ray in a packet)
+FIELDS = {"coarse": (8, 256, 64), "fine": (10, 1024, 128)}
+PACKET = 8192   # rays a packet of render_frame
+TEACHER_SIDE = 512   # side of the teacher frames of the path phase
+# |kernel - plain| limits as (max, rms), both times max(1, max|plain|)
+FIELD_TOL = {"bfloat16": (6e-2, 6e-3), "float32": (1e-4, 1e-5)}
+# bf16 is also held sharply at the packet shape, with contracting weights: the
+# scale and the atol of the TPU kernel's own test
+CONTRACT, CONTRACT_ATOL = 0.4, 5e-3
 
 
 def fail(failures, msg):
@@ -62,6 +83,25 @@ def cuda_ms(fn, iters, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def field_flops_per_point(cfg, n_layers):
+    """Operations of the conditioned field for one point: the embedding
+    layer, the hidden stack, the view layer and the two output heads."""
+    W, pe = cfg.width, cfg.pts_embed_dim
+    return 2 * (pe * W + n_layers * W * W + W * (W // 2) + W + 3 * (W // 2))
+
+
+def field_weight_bytes(cfg, n_layers, esize):
+    W, W2, pe = cfg.width, cfg.width // 2, cfg.pts_embed_dim
+    weights = (pe * W + n_layers * W * W + W * W2 + W + 3 * W2) * esize
+    biases = (W + n_layers * W + W2 + 4) * 4
+    return weights + biases
+
+
+def field_io_bytes(cfg, n_rows, n_rays):
+    """Embedded points and per-ray view features in (f32), [N, 4] f32 out."""
+    return n_rows * cfg.pts_embed_dim * 4 + n_rays * (cfg.width // 2) * 4 + n_rows * 16
 
 
 def flops_per_sample(depth, width, multires):
@@ -147,6 +187,138 @@ def kernel_phase(failures, dev, n_rays=N_KERNEL):
               f"(plain PyTorch {plain_ms:.3f} ms); bound {bound:.4f} ms "
               f"({rows[dt_name]['bound_by']}: {ops_count / 1e9:.2f} GFLOP over hit rays), "
               f"{bound / ms:.1%} of bound", flush=True)
+    return rows
+
+
+def field_inputs(cfg, w_dirs, n_rays, n_samples, seed, dev):
+    """Embedded sample points and per-ray view features as the renderer makes
+    them: rays from (0, 0, 16) toward the head, depths evenly over [8, 26]."""
+    import torch
+
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+
+    ro, rd = kernel_rays(n_rays, seed, dev)
+    z = torch.linspace(8.0, 26.0, n_samples, device=dev)
+    pts = ro[:, None, :] + rd[:, None, :] * z[None, :, None]
+    pe = fourier_embed(pts.reshape(-1, 3), cfg.multires).contiguous()
+    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    dirf = (fourier_embed(viewdirs, cfg.multires_views) @ w_dirs).contiguous()
+    return pe, dirf
+
+
+def field_kernel_phase(failures, dev):
+    """Kernel B1 against its plain version at full width: both fields, bf16
+    and f32, at a ragged shape and at the packet shape of the main path."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.models.field import (FieldConfig, fold_conditioning,
+                                                 init_field_params)
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+
+    def both(fused, pe, dirf, cfg, ns):
+        """Kernel and plain version on the same operands, and the plain version's ms."""
+        with torch.no_grad():
+            got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, ns), dim=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns), dim=-1)
+            torch.cuda.synchronize()
+        return got, ref, (time.perf_counter() - t0) * 1e3
+
+    rows = {}
+    for name, (depth, width, n_samples) in FIELDS.items():
+        for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            cfg = FieldConfig(depth=depth, width=width, compute_dtype=dt)
+            gen = torch.Generator().manual_seed(3)
+            params = init_field_params(gen, cfg, device=dev)
+            codes = [(torch.randn(n, generator=gen) * s).to(dev)
+                     for n, s in ((cfg.shape_dim, 1.0), (cfg.exp_dim, 0.5), (cfg.tex_dim, 0.5))]
+            fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
+            n_layers = fused.w_stack.shape[0]
+            block = fk.block_rows(cfg)
+            # f32 runs FFMA: the fine field's check takes a part of a packet
+            n_time = PACKET if (dt == torch.bfloat16 or name == "coarse") else PACKET // 8
+            worst = 0.0
+            ref_time = None
+            for n_rays, ns in ((333, n_samples - 1), (n_time, n_samples)):
+                pe, dirf = field_inputs(cfg, params["view"]["w_dirs"], n_rays, ns, 5, dev)
+                got, ref, ref_time = both(fused, pe, dirf, cfg, ns)
+                # tolerance scaled to the output's magnitude. f32: only the order of the
+                # sums differs, so this is the sharp check of the layer plan. bf16: a sum in
+                # another order lands across a rounding boundary of a layer's output now and
+                # then, the next layer spreads that one-ulp change over its whole width, and
+                # with full-gain random weights up to 25 layers carry it on: the two versions
+                # end about one bf16 ulp a layer apart in the rms and a few percent apart at
+                # the worst of a million points, so bf16 is held in the max and in the rms
+                # here (the 99.9% quantile is printed as a reading), and sharply with
+                # contracting weights below.
+                scale = max(1.0, float(ref.abs().max()))
+                tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
+                diff = (got - ref).abs()
+                rms = float(diff.square().mean().sqrt())
+                k999 = max(1, int(0.999 * diff.numel()))
+                q999 = float(diff.flatten().kthvalue(k999).values)
+                bad = int((diff > tol).sum()) + int(rms > tol_rms)
+                finite = bool(torch.isfinite(got).all())
+                ragged = (n_rays * ns) % block != 0
+                worst = max(worst, float(diff.max()))
+                print(f"field kernel {name} {dt_name} {n_rays} rays x {ns} samples "
+                      f"(block {block} rows, ragged {ragged}): max|kernel-plain| rgb "
+                      f"{float(diff[:, :3].max()):.3e} sigma {float(diff[:, 3].max()):.3e} "
+                      f"rms {rms:.3e} 99.9% {q999:.3e} (tol max {tol:.3e} rms {tol_rms:.3e} = "
+                      f"{FIELD_TOL[dt_name]} "
+                      f"x max(1, max|plain| {float(ref.abs().max()):.3f})), outside tol {bad}, "
+                      f"finite {finite}",
+                      flush=True)
+                if bad or not finite or got.shape != (n_rays * ns, 4):
+                    fail(failures, f"field kernel {name} {dt_name} disagrees with its plain version")
+            if dt == torch.bfloat16:
+                # the sharp bf16 check, at the packet shape of the main path: weights
+                # x 0.4 contract, so a rounding flip dies out instead of growing through
+                # the layers, and one wrong warp tile or ldmatrix lane stands out
+                small = map_tree(lambda w: w * CONTRACT, params)
+                fused_c = fk.pack_fused_params(small, fold_conditioning(small, *codes), cfg)
+                got, ref, _ = both(fused_c, pe, dirf * CONTRACT, cfg, n_samples)
+                diff = (got - ref).abs()
+                bad = int((diff > CONTRACT_ATOL).sum())
+                print(f"field kernel {name} {dt_name} {n_time} rays x {n_samples} samples, "
+                      f"weights x {CONTRACT}: max|kernel-plain| rgb {float(diff[:, :3].max()):.3e} "
+                      f"sigma {float(diff[:, 3].max()):.3e} (atol {CONTRACT_ATOL}; max|plain| "
+                      f"{float(ref.abs().max()):.3f}), outside tol {bad}", flush=True)
+                if bad or not bool(torch.isfinite(got).all()) or float(ref.abs().max()) < 0.05:
+                    fail(failures, f"field kernel {name} bf16 with contracting weights disagrees "
+                                   f"with its plain version")
+                del small, fused_c, got, ref, diff
+            # timed at the last (packet) shape; the plain version's time is the
+            # comparison run above (it repeats the kernel's arithmetic in f32 matmuls)
+            with torch.no_grad():
+                slow = name == "fine"
+                ms = cuda_ms(lambda: fk.fused_field_apply(fused, pe, dirf, cfg, n_samples),
+                             iters=2 if slow else 10, warmup=1)
+            n_rows = n_time * n_samples
+            esize = 2 if dt == torch.bfloat16 else 4
+            ops_count = n_rows * field_flops_per_point(cfg, n_layers)
+            t_ops = ops_count / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3
+            w_bytes = field_weight_bytes(cfg, n_layers, esize)
+            t_bytes = (field_io_bytes(cfg, n_rows, n_time) + w_bytes) / PEAK_BYTES * 1e3
+            # what the design's weight traffic (every CTA streams the whole stack once)
+            # would take out of device memory. Not a floor: CTAs in flight walk the stack
+            # together and mostly hit L2, so the kernel may run under it
+            t_stream = -(-n_rows // block) * w_bytes / PEAK_BYTES * 1e3
+            bound = max(t_ops, t_bytes)
+            rows[(name, dt_name)] = {
+                "ms": ms, "plain_ms": ref_time, "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "max_abs_err": worst, "rays": n_time, "samples": n_samples,
+                "block_rows": block}
+            print(f"field kernel {name} {dt_name}: {ms:.3f} ms a launch of {n_time} rays x "
+                  f"{n_samples} samples (plain PyTorch {ref_time:.3f} ms); operations bound "
+                  f"{t_ops:.3f} ms ({ops_count / 1e12:.3f} TFLOP), bytes-once bound "
+                  f"{t_bytes:.4f} ms; this design's weight traffic {t_stream:.3f} ms "
+                  f"({-(-n_rows // block)} CTAs x {w_bytes / 1e6:.2f} MB at device-memory "
+                  f"rate, not a floor: the stream mostly hits L2); {bound / ms:.1%} of bound",
+                  flush=True)
     return rows
 
 
@@ -285,6 +457,147 @@ def path_phase(failures, card, dev, H=512):
     return launches
 
 
+def shape_density(field_params, cfg, cond, pe_probe):
+    """Give a seeded random field visible structure: rescale and shift its
+    alpha head so that raw sigma over the probe points has median 0 and
+    spread 3 (a random ReLU field's raw sigma has nearly one sign)."""
+    import torch
+
+    from mofanerf_tpu_torch.models.field import apply_field_sigma
+
+    alpha = field_params["sigma"]["alpha"]
+    with torch.no_grad():
+        sig = apply_field_sigma(field_params, cond, pe_probe,
+                                dataclasses.replace(cfg, compute_dtype=torch.float32))
+        gain = 3.0 / float(sig.std())
+        alpha["w"] = alpha["w"] * gain
+        alpha["b"] = (alpha["b"] - sig.median()) * gain
+
+
+def teacher_path_phase(failures, card, dev, field_rows, H=TEACHER_SIDE):
+    """The teacher two-pass render at full width through the port's entry
+    points: the CLI's teacher route, then render_path with a cond a pose."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.cli import run_render
+    from mofanerf_tpu_torch.config import Config
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (FrameCond, encode_texture, exp_code_for,
+                                                    init_model_params, prepare_conditioning,
+                                                    render_frame, render_path)
+
+    spec = Config().model_spec()   # the CLI's default: coarse 8x256, fine 10x1024, bf16
+    n_views = 2
+    path_poses = np.stack([pose_spherical(-25.0, -5.0, 16.0), pose_spherical(30.0, 5.0, 16.0)])
+    path_exps = (3, 14)
+    packets = -(-H * H // spec.render.packet_size)
+    expected = 2 * packets * (n_views + len(path_poses))   # a coarse and a fine launch a packet
+
+    # set-up: a seeded full-width model, a seeded UV map through the texture
+    # encoder, one folded conditioning an expression
+    gen = torch.Generator().manual_seed(7)
+    t0 = time.perf_counter()
+    params = init_model_params(gen, spec, device=dev)
+    uv = torch.rand((spec.uv_size, spec.uv_size, 3), generator=gen).to(dev)
+    shape_code = torch.randn(spec.shape_dim, generator=gen).to(dev)
+    with torch.no_grad():
+        tex = encode_texture(params, spec, uv)
+        conds = [prepare_conditioning(params, spec, shape_code, exp_code_for(params, e), tex)
+                 for e in path_exps]
+    probe_o, probe_d = kernel_rays(2048, 11, dev)
+    probe = probe_o[:, None, :] + probe_d[:, None, :] * torch.linspace(8.0, 26.0, 16, device=dev)[:, None]
+    for name, cond in (("coarse", conds[0].coarse), ("fine", conds[0].fine)):
+        cfg = getattr(spec, name)
+        shape_density(params[name], cfg, cond, fourier_embed(probe.reshape(-1, 3), cfg.multires))
+    torch.cuda.synchronize()
+    print(f"teacher path: model init + texture encoder + conditioning in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    cpu_params = map_tree(lambda t: t.cpu(), params)
+    with torch.no_grad():
+        tex_cpu = encode_texture(cpu_params, spec, uv.cpu())
+    tex_err = float((tex.cpu() - tex_cpu).abs().max())
+    # f32 convolutions and products on both sides: sum order only
+    print(f"teacher path: texture code {tuple(tex.shape)}, card vs CPU max |diff| {tex_err:.3e} "
+          f"(tol 1e-4 x max|code| {float(tex_cpu.abs().max()):.3f})", flush=True)
+    if tex.shape != (spec.tex_dim,) or not tex_err <= 1e-4 * max(1.0, float(tex_cpu.abs().max())):
+        fail(failures, f"texture code differs between card and CPU by {tex_err}")
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        # ---- the main path: counts zeroed just before, read just after
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        frames = run_render.main(["--out_dir", os.path.join(tmp, "teacher"),
+                                  "--n_views", str(n_views), "--render_factor", str(512 // H),
+                                  "--basedir", os.path.join(tmp, "logs"),
+                                  "--uvdir", os.path.join(tmp, "uv"),
+                                  "--shape_codes_path", os.path.join(tmp, "none.npy"),
+                                  "--device", str(dev)])
+        t_cli = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rgbs, disps = render_path(params, spec, conds, path_poses, (512, 512, 1200.0),
+                                  render_factor=512 // H)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t0
+        launches = fk.launch_count
+        n_png = len([f for f in os.listdir(os.path.join(tmp, "teacher")) if f.endswith(".png")])
+
+    sec = t_path / len(path_poses)
+    print(f"teacher path: CLI rendered {frames.shape[0]} frames {frames.shape[1]}x"
+          f"{frames.shape[2]} in {t_cli:.3f} s ({n_png} PNGs, model init included); "
+          f"render_path {len(path_poses)} poses x 1 expression each in {t_path:.3f} s; "
+          f"field kernel launches {launches} (expected {expected}: a coarse and a fine one "
+          f"a packet)", flush=True)
+    print(f"teacher path: {sec:.4f} s per {H}x{H} frame, {H * H / sec:.0f} rays/s "
+          f"(bf16 coarse 8x256 + fine 10x1024, 64 + 64 samples, packets of "
+          f"{spec.render.packet_size}) on {card}", flush=True)
+    kernel_s = packets * sum(field_rows[(name, "bfloat16")]["ms"] for name in FIELDS) / 1e3
+    print(f"teacher path: {packets} packets x (coarse + fine launch, as timed in the kernel "
+          f"phase) = {kernel_s:.4f} s, {kernel_s / sec:.1%} of the frame; the rest "
+          f"({(sec - kernel_s) / packets * 1e3:.2f} ms a packet) is sampling, embedding and "
+          f"compositing between the launches", flush=True)
+    if launches != expected or launches == 0:
+        fail(failures, f"field kernel launch count {launches} != expected {expected}")
+    if frames.shape != (n_views, H, H, 3) or n_png != n_views:
+        fail(failures, f"teacher CLI output shape {frames.shape}, {n_png} PNGs")
+    if rgbs.shape != (len(path_poses), H, H, 3) or disps.shape != (len(path_poses), H, H):
+        fail(failures, f"render_path output shapes {rgbs.shape}, {disps.shape}")
+    for name, arr in (("teacher cli rgb", frames), ("render_path rgb", rgbs)):
+        if not np.isfinite(arr).all() or arr.min() < 0.0 or arr.max() > 1.0 + 1e-5:
+            fail(failures, f"{name} not finite or outside [0, 1]: "
+                           f"[{np.nanmin(arr)}, {np.nanmax(arr)}]")
+    if not np.isfinite(disps).all():
+        fail(failures, "render_path disp not finite")
+    if np.abs(rgbs[0] - rgbs[1]).max() == 0.0:
+        fail(failures, "render_path: two poses and expressions gave the same frame")
+
+    # a small frame on the card against the same frame on the CPU (the plain
+    # version), every output key. f32: sum order only, through 25 layers and
+    # two compositing passes. bf16: sum order moves layer outputs across
+    # rounding boundaries, and the importance samples follow the coarse weights.
+    Ks = np.array([[40.0, 0, 6.0], [0, 40.0, 6.0], [0, 0, 1]], np.float32)
+    cpu_cond = FrameCond(*[map_tree(lambda t: t.cpu(), c) for c in conds[0]])
+    for dt, tol in ((torch.float32, 2e-3), (torch.bfloat16, 6e-2)):
+        sspec = dataclasses.replace(
+            spec, coarse=dataclasses.replace(spec.coarse, compute_dtype=dt),
+            fine=dataclasses.replace(spec.fine, compute_dtype=dt))
+        on_card = render_frame(params, sspec, conds[0], 12, 12, Ks, path_poses[0][:3])
+        on_cpu = render_frame(cpu_params, sspec, cpu_cond, 12, 12, Ks, path_poses[0][:3])
+        errs = {k: float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu}
+        acc_max = float(on_cpu["acc"].max())
+        print(f"teacher path: 12x12 frame {dt}, card vs CPU max |diff| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {tol} on rgb0 acc0 rgb acc; max acc {acc_max:.3f})", flush=True)
+        if not all(errs[k] <= tol for k in ("rgb0", "acc0", "rgb", "acc")):
+            fail(failures, f"card and CPU teacher renders differ ({dt}): {errs}")
+        if not acc_max > 0.05:
+            fail(failures, "teacher render is empty (acc ~ 0 everywhere)")
+    return launches, sec
+
+
 def main(argv) -> int:
     kernel_only = "--kernel-only" in argv
     import torch
@@ -296,7 +609,6 @@ def main(argv) -> int:
     from mofanerf_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -319,18 +631,43 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     rows = kernel_phase(failures, dev)
-    print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernel phase (serving kernel): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    field_rows = field_kernel_phase(failures, dev)
+    print(f"kernel phase (field kernel): {time.perf_counter() - t0:.1f} s", flush=True)
     if kernel_only:
         return 1 if failures else 0
     t0 = time.perf_counter()
     launches = path_phase(failures, card, dev)
-    print(f"path phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"path phase (serving): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    field_launches, _ = teacher_path_phase(failures, card, dev, field_rows)
+    print(f"path phase (teacher): {time.perf_counter() - t0:.1f} s", flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
 
     main_row = rows["bfloat16"]   # the dtype the serving path runs
-    print(json.dumps({"kernels": [{
+    field_entries = []
+    for name, (depth, width, _) in FIELDS.items():
+        row = field_rows[(name, "bfloat16")]   # the dtype the teacher path runs
+        field_entries.append({
+            "name": f"fused_field_apply[{name} {depth}x{width}]",
+            "route": "cuda",
+            "source": "mofanerf_tpu_torch/csrc/field_kernel.cu",
+            "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
+            # render_rays launches each field once a packet: half of the wrapper's count
+            "launches": field_launches // 2,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "block_rows": row["block_rows"],
+            "f32": field_rows[(name, "float32")],
+        })
+    print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",
         "route": "cuda",
         "source": "mofanerf_tpu_torch/csrc/serve_kernel.cu",

@@ -18,8 +18,10 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from mofanerf_tpu_torch.models.field import FieldConfig, field_param_shapes
 from mofanerf_tpu_torch.models.student import StudentConfig, student_param_shapes
-from mofanerf_tpu_torch.render.renderer import N_EXP_SLOTS
+from mofanerf_tpu_torch.models.tex_encoder import CONV_WIDTHS, TextureEncoder
+from mofanerf_tpu_torch.render.renderer import N_EXP_SLOTS, MoFaNeRF
 from mofanerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -84,10 +86,40 @@ def student_to_torch(tree, cfg: StudentConfig, device="cuda") -> Params:
     return to_torch(tree, device)
 
 
+def field_to_torch(tree, cfg: FieldConfig, device="cuda") -> Params:
+    """A JAX conditioned-field param tree (numpy leaves) -> the port's field
+    params, checked leaf by leaf against `cfg`'s layout."""
+    _check_shapes(tree, field_param_shapes(cfg))
+    return to_torch(tree, device)
+
+
+def tex_encoder_to_torch(variables, tex_dim: int = 256, uv_size: int = 512,
+                         device="cuda") -> Params:
+    """The flax variables of the JAX TextureEncoder (`{"params": {Conv_0..6,
+    Dense_0, mu, decoding_0..2}}`, numpy leaves) -> the state dict of the
+    port's TextureEncoder, checked against its shapes."""
+    p = variables["params"]
+    names = {f"convs.{i}": f"Conv_{i}" for i in range(len(CONV_WIDTHS))}
+    names.update({"fc": "Dense_0", "mu": "mu"})
+    names.update({f"decoding.{i}": f"decoding_{i}" for i in range(3)})
+    if set(p) != set(names.values()):
+        raise ValueError(f"texture encoder: expected layers {sorted(names.values())}, "
+                         f"got {sorted(p)}")
+    state = {}
+    for ours, theirs in names.items():
+        kernel = np.asarray(p[theirs]["kernel"])
+        state[f"{ours}.weight"] = np.ascontiguousarray(
+            kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T)
+        state[f"{ours}.bias"] = np.asarray(p[theirs]["bias"])
+    want = TextureEncoder(tex_dim, uv_size, device="meta").state_dict()
+    _check_shapes(state, {k: tuple(v.shape) for k, v in want.items()})
+    return to_torch(state, device)
+
+
 def serving_params_to_torch(model_params, device="cuda") -> Params:
     """The teacher parts the serving path reads, from a JAX model param tree
-    (numpy leaves): {"ism": ..., "exp_codes": [21, exp_dim]}. The field and
-    texture-encoder subtrees are ported with the teacher-render slice."""
+    (numpy leaves): {"ism": ..., "exp_codes": [21, exp_dim]}. The whole tree
+    goes through `model_params_to_torch`."""
     ism = model_params["ism"]
     exp_codes = np.asarray(model_params["exp_codes"])
     exp_dim = np.shape(ism["scale"]["w"])[1]
@@ -95,3 +127,19 @@ def serving_params_to_torch(model_params, device="cuda") -> Params:
         raise ValueError(
             f"exp_codes shape {exp_codes.shape} != ({N_EXP_SLOTS}, {exp_dim})")
     return to_torch({"ism": ism, "exp_codes": exp_codes}, device)
+
+
+def model_params_to_torch(model_params, spec: MoFaNeRF, device="cuda") -> Params:
+    """The whole tree of the JAX `init_model_params` (numpy leaves) -> the
+    port's model params: `coarse`, `fine`, `ism`, `tex_encoder`, `exp_codes`."""
+    want = {"coarse", "fine", "ism", "tex_encoder", "exp_codes"}
+    if set(model_params) != want:
+        raise ValueError(f"model params: expected keys {sorted(want)}, got {sorted(model_params)}")
+    out = serving_params_to_torch(model_params, device)
+    if out["exp_codes"].shape[1] != spec.exp_dim:
+        raise ValueError(f"exp_codes are {out['exp_codes'].shape[1]}-dim, the spec's {spec.exp_dim}")
+    out["coarse"] = field_to_torch(model_params["coarse"], spec.coarse, device)
+    out["fine"] = field_to_torch(model_params["fine"], spec.fine, device)
+    out["tex_encoder"] = tex_encoder_to_torch(model_params["tex_encoder"], spec.tex_dim,
+                                              spec.uv_size, device)
+    return out

@@ -1,18 +1,25 @@
-"""Serve an orbit from a student artifact (counterpart of the serve-from-file
-route of mofanerf_tpu/cli/run_render.py).
+"""Orbit rendering CLI (counterpart of mofanerf_tpu/cli/run_render.py): the
+teacher two-pass render, or serving from a student artifact.
 
+    # the teacher model (config flags as in mofanerf_tpu_torch/config.py)
     python -m mofanerf_tpu_torch.cli.run_render --out_dir out \
-        --student_path student.npz [--n_views 40] [--render_factor 2] \
-        [--n_samples 32] [--person 0] [--expression 0] [--device cuda]
+        [--config configs/exp_mofanerf.txt] [--person 0] [--expression 0] \
+        [--n_views 40] [--render_factor 2] [--device cuda]
+    # a distilled student artifact
+    python -m mofanerf_tpu_torch.cli.run_render --out_dir out \
+        --student_path student.npz [--n_samples 32] ...
 
-Renders `--n_views` poses on the spherical orbit through the fused serving
-renderer and writes one PNG a frame. On the card every packet runs the CUDA
-kernel; with `--device cpu` its plain PyTorch version runs instead.
+Renders `--n_views` poses on the spherical orbit and writes one PNG a frame.
+Without `--student_path` the teacher renders: both conditioned fields
+through the fused field kernel, 64 + 64 samples a ray. With it, the fused
+serving renderer does. On the card every packet runs the CUDA kernels; with
+`--device cpu` their plain PyTorch versions run instead.
 
-Not ported yet, and refused with a message: distilling a student (needs the
-teacher, ROADMAP A4) and serving a conditioned artifact (cond_dim > 0: its
-code comes from the teacher checkpoint's ISM and expression bank, which are
-Orbax files that need the reader of ROADMAP A3).
+Not ported yet, and refused with a message naming the ROADMAP item: a
+teacher checkpoint (Orbax files, A3) -- so the teacher renders seeded,
+untrained weights -- a UV texture JPEG (image reader, A5), `--fast`
+(occupancy grids, A6), distilling a student (A4), and serving a conditioned
+artifact (cond_dim > 0: its code comes from the teacher checkpoint, A3).
 """
 from __future__ import annotations
 
@@ -25,7 +32,10 @@ import zlib
 import numpy as np
 import torch
 
+from mofanerf_tpu_torch.config import load_config
 from mofanerf_tpu_torch.ops.rays import pose_spherical
+from mofanerf_tpu_torch.render.renderer import (exp_code_for, init_model_params,
+                                                prepare_conditioning, render_path)
 from mofanerf_tpu_torch.render.serve import render_frame_serve
 from mofanerf_tpu_torch.train.distill import load_student
 from mofanerf_tpu_torch.utils.metrics import to8b
@@ -47,11 +57,63 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def _orbit(n_views: int) -> np.ndarray:
+    return np.stack(
+        [pose_spherical(a, 0.0, 16.0) for a in np.linspace(-180, 180, n_views + 1)[:-1]])
+
+
+def _write_frames(out_dir: str, rgbs: np.ndarray) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    for i, rgb in enumerate(rgbs):
+        write_png(os.path.join(out_dir, f"{i:03d}.png"), to8b(rgb))
+    print(f"wrote {len(rgbs)} frames (no video: the port writes PNG frames only)")
+
+
+def _render_teacher(args, rest) -> np.ndarray:
+    """The default route: the teacher's two-pass render of the orbit."""
+    cfg = load_config(rest)
+    spec = cfg.model_spec()
+    ckpt_dir = args.ckpt_dir or os.path.join(cfg.basedir, cfg.expname, "checkpoints")
+    if os.path.isdir(ckpt_dir) and any(d.isdigit() for d in os.listdir(ckpt_dir)):
+        raise SystemExit(
+            f"{ckpt_dir} holds a teacher checkpoint: those are Orbax files, which the "
+            "port reads once the torch-free checkpoint reader lands (ROADMAP A3)")
+    uv_path = os.path.join(cfg.uvdir, str(args.person), "1_neutral.jpg")
+    if os.path.exists(uv_path):
+        raise SystemExit(
+            f"{uv_path} exists: encoding a UV texture from disk needs the image "
+            "reader of the data slice (ROADMAP A5); encode_texture takes a UV tensor")
+    params = init_model_params(torch.Generator().manual_seed(0), spec, device=args.device)
+    print("WARNING: rendering an untrained model")
+    dev = params["exp_codes"].device
+
+    shape = torch.zeros(spec.shape_dim, device=dev)
+    if os.path.exists(cfg.shape_codes_path):
+        # factors_id.npy: [persons, shape_dim] identity factors
+        shape = torch.from_numpy(
+            np.load(cfg.shape_codes_path)[args.person].astype(np.float32)).to(dev)
+    tex = torch.zeros(spec.tex_dim, device=dev)
+    cond = prepare_conditioning(params, spec, shape, exp_code_for(params, args.expression), tex)
+
+    poses = _orbit(args.n_views)
+    t_start = time.perf_counter()
+    rgbs, _ = render_path(params, spec, cond, poses, (512, 512, 1200.0),
+                          render_factor=args.render_factor)
+    seconds = time.perf_counter() - t_start
+    print(f"rendered {len(rgbs)} teacher frames of {rgbs.shape[1]}x{rgbs.shape[2]} in "
+          f"{seconds:.3f} s on {dev}, packets of {spec.render.packet_size} rays")
+    _write_frames(args.out_dir, rgbs)
+    return rgbs
+
+
 def main(argv=None) -> np.ndarray:
     """Run the CLI; returns the rendered frames [F, H, W, 3] (f32 in [0, 1]
     before quantisation) so callers can check them."""
     p = argparse.ArgumentParser()
     p.add_argument("--out_dir", required=True)
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--fast", action="store_true",
+                   help="occupancy-culled rendering (not ported yet)")
     p.add_argument("--student_path", default=None,
                    help="deployable student artifact (.npz) to serve")
     p.add_argument("--person", type=int, default=0)
@@ -67,7 +129,7 @@ def main(argv=None) -> np.ndarray:
                         "serves the artifact")
     p.add_argument("--distill_cond", action="store_true")
     p.add_argument("--distill_avatars", default=None)
-    args = p.parse_args(argv)
+    args, rest = p.parse_known_args(argv)
 
     if args.distill_cond or args.distill_avatars:
         raise SystemExit(
@@ -76,6 +138,12 @@ def main(argv=None) -> np.ndarray:
             "unconditioned artifacts only until the torch-free teacher "
             "checkpoint reader (ROADMAP A3) and distillation (ROADMAP A4) land"
         )
+    if args.fast:
+        raise SystemExit(
+            "--fast renders through an occupancy grid, which is ported with the "
+            "occupancy slice (ROADMAP A6)")
+    if not args.student_path and not args.distill:
+        return _render_teacher(args, rest)
     if not args.student_path or not os.path.exists(args.student_path):
         raise SystemExit(
             f"no student artifact at {args.student_path!r}: the port serves "
@@ -118,9 +186,7 @@ def main(argv=None) -> np.ndarray:
                 f"{prov_exp}, but --expression={args.expression} was requested"
             )
 
-    poses = np.stack(
-        [pose_spherical(a, 0.0, 16.0) for a in np.linspace(-180, 180, args.n_views + 1)[:-1]]
-    )
+    poses = _orbit(args.n_views)
     rf = max(1, args.render_factor)
     H = W = 512 // rf
     K = np.array([[1200.0 / rf, 0, W / 2], [0, 1200.0 / rf, H / 2], [0, 0, 1]],
@@ -139,12 +205,9 @@ def main(argv=None) -> np.ndarray:
     seconds = time.perf_counter() - t_start
     rgbs = np.stack(frames)
 
-    os.makedirs(args.out_dir, exist_ok=True)
-    for i, rgb in enumerate(rgbs):
-        write_png(os.path.join(args.out_dir, f"{i:03d}.png"), to8b(rgb))
     print(f"rendered {len(rgbs)} frames of {H}x{W} in {seconds:.3f} s on "
           f"{params['input']['w'].device}, packets of {pkt} rays")
-    print(f"wrote {len(rgbs)} frames (no video: the port writes PNG frames only)")
+    _write_frames(args.out_dir, rgbs)
     return rgbs
 
 

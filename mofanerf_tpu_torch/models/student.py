@@ -16,21 +16,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mofanerf_tpu_torch.models.field import FieldConfig, apply_field_folded
 from mofanerf_tpu_torch.ops.embed import embed_dim
 from mofanerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
-
-
-class FieldConfig:
-    """The conditioned teacher field is ported with the teacher-render
-    slice (ROADMAP A2); until then it cannot be built."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FieldConfig (the conditioned teacher field) is not ported yet: "
-            "it comes with the teacher two-pass render slice, ROADMAP A2"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,14 +162,12 @@ def apply_student(
 
 
 def point_apply(params, cond, pts_embed, dir_feat, cfg, samples_per_ray=None):
-    """(pe, dirf) -> (raw_rgb, raw_sigma). For StudentConfig, `cond` is the
-    conditioning code [cond_dim] (folded into biases here) or None."""
-    if not isinstance(cfg, StudentConfig):
-        raise NotImplementedError(
-            "only StudentConfig fields are ported; the conditioned field "
-            "comes with the teacher-render slice (ROADMAP A2)"
-        )
-    if cond is not None:
-        params = fold_student_code(params, cond)
-    return apply_student(params, pts_embed, dir_feat, cfg, samples_per_ray)
+    """(pe, dirf) -> (raw_rgb, raw_sigma) for either field family. For
+    StudentConfig, `cond` is the conditioning code [cond_dim] (folded into
+    biases here) or None; for FieldConfig it is the folded conditioning."""
+    if isinstance(cfg, StudentConfig):
+        if cond is not None:
+            params = fold_student_code(params, cond)
+        return apply_student(params, pts_embed, dir_feat, cfg, samples_per_ray)
+    return apply_field_folded(params, cond, pts_embed, dir_feat, cfg, samples_per_ray)
 

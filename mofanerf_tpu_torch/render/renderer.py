@@ -1,14 +1,323 @@
-"""Expression-bank helpers of the renderer (counterpart of the parts of
-mofanerf_tpu/render/renderer.py that the serving path reads). The two-pass
-teacher renderer comes with the teacher-render slice (ROADMAP A2)."""
+"""Two-pass volume renderer of the teacher model (counterpart of
+mofanerf_tpu/render/renderer.py).
+
+Stratified coarse pass, compositing, inverse-CDF importance resampling, fine
+pass, coarse + fine outputs. Everything is an explicit argument; a frame is a
+Python loop over fixed-size ray packets. Conditioning codes are folded once a
+frame into per-layer biases (`prepare_conditioning`), and the view-direction
+features are computed once a ray.
+
+Both fields run through `ops/field_kernel.py::fused_field_apply` on every
+device: on the card that is the hand-written CUDA kernel, on the CPU its plain
+PyTorch version. So the renderer follows the kernel's precision contract
+(products in the compute dtype summed in f32, f32 bias adds, f32 outputs): at
+compute_dtype float32 that is the JAX renderer's arithmetic; at bfloat16 it
+is close to, not equal to, the JAX XLA path, which also adds biases in
+bfloat16. The kernel's operands (`pack_fused_params`, a cast of every weight)
+are made once a frame by `pack_frame` and handed down to the packets.
+
+On the card the render is inference only; on the CPU it is plain
+differentiable tensor code.
+"""
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Any, Dict, NamedTuple
+
+import numpy as np
 import torch
+
+from mofanerf_tpu_torch.models.field import FieldConfig, fold_conditioning, init_field_params
+from mofanerf_tpu_torch.models.ism import init_ism_params, modulate_expression
+from mofanerf_tpu_torch.models.tex_encoder import TextureEncoder, init_tex_encoder_params
+from mofanerf_tpu_torch.ops.composite import composite
+from mofanerf_tpu_torch.ops.embed import fourier_embed
+from mofanerf_tpu_torch.ops.field_kernel import FusedParams, fused_field_apply, pack_fused_params
+from mofanerf_tpu_torch.ops.rays import get_rays
+from mofanerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+from mofanerf_tpu_torch.utils.device import resolve_device
+
+Params = Dict[str, Any]
 
 N_EXPRESSIONS = 20  # FaceScape expression count
 N_EXP_SLOTS = 21    # +1 fitting slot
 
 
-def exp_code_for(params, exp_type) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Rendering hyperparameters (defaults = configs/exp_mofanerf.txt and the
+    canonical camera)."""
+
+    n_coarse: int = 64
+    n_importance: int = 64
+    perturb: float = 1.0          # 0 for eval
+    raw_noise_std: float = 0.0
+    white_bkgd: bool = False
+    near: float = 8.0
+    far: float = 26.0
+    lindisp: bool = False
+    packet_size: int = 8192       # rays a packet of a full frame
+    sigma_activation: str = "relu"  # 'relu' (reference) or 'softplus'
+    fine_on_union: bool = True    # the fine net sees coarse + importance samples;
+                                  # False: only the importance samples
+
+
+@dataclasses.dataclass(frozen=True)
+class MoFaNeRF:
+    """Static model spec: coarse + fine field configs + render config
+    (reference dims: coarse 8x256, fine 10x1024)."""
+
+    coarse: FieldConfig = FieldConfig(depth=8, width=256)
+    fine: FieldConfig = FieldConfig(depth=10, width=1024)
+    render: RenderConfig = RenderConfig()
+    shape_dim: int = 50
+    exp_dim: int = 30
+    tex_dim: int = 256
+    uv_size: int = 512  # UV map side; >= 128 (the encoder downsamples 2^7)
+
+
+def init_model_params(generator: torch.Generator, spec: MoFaNeRF, device="cuda") -> Params:
+    """Full trainable state: both fields, ISM, the texture encoder's state
+    dict, and the expression latent bank [N_EXP_SLOTS, exp_dim] indexed by
+    expression type. Draws come from a CPU `torch.Generator`."""
+    dev = resolve_device(device)
+    return {
+        "coarse": init_field_params(generator, spec.coarse, device=dev),
+        "fine": init_field_params(generator, spec.fine, device=dev),
+        "ism": init_ism_params(generator, in_dim=spec.shape_dim, out_dim=spec.exp_dim,
+                               device=dev),
+        "tex_encoder": init_tex_encoder_params(generator, spec.tex_dim, spec.uv_size,
+                                               device=dev),
+        "exp_codes": torch.rand((N_EXP_SLOTS, spec.exp_dim), generator=generator,
+                                dtype=torch.float32).to(dev),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder(tex_dim: int, uv_size: int) -> TextureEncoder:
+    # the layer structure only; its weights come from the param tree at call time
+    return TextureEncoder(tex_dim, uv_size, device="meta")
+
+
+def encode_texture(params: Params, spec: MoFaNeRF, uv_map: torch.Tensor) -> torch.Tensor:
+    """uv_map [S, S, 3] or [B, S, S, 3] (S = spec.uv_size) -> tex code
+    [tex_dim] / [B, tex_dim], in full f32 on the card too."""
+    squeeze = uv_map.ndim == 3
+    if squeeze:
+        uv_map = uv_map[None]
+    out = torch.func.functional_call(_encoder(spec.tex_dim, spec.uv_size),
+                                     params["tex_encoder"], (uv_map,))
+    return out[0] if squeeze else out
+
+
+class FrameCond(NamedTuple):
+    """Per-frame folded conditioning: compute once per (identity, expression,
+    texture) with `prepare_conditioning`, then render any number of rays."""
+
+    coarse: Params  # folded biases for the coarse field
+    fine: Params    # folded biases for the fine field
+
+
+def prepare_conditioning(
+    params: Params,
+    spec: MoFaNeRF,
+    shape_code: torch.Tensor,   # [shape_dim]
+    exp_code: torch.Tensor,     # [exp_dim] raw latent (pre-ISM)
+    tex_code: torch.Tensor,     # [tex_dim]
+) -> FrameCond:
+    """ISM-modulate the expression latent and fold all codes into per-layer
+    biases for both fields. Differentiable with respect to all three codes."""
+    exp_mod = modulate_expression(params["ism"], shape_code, exp_code)
+    return FrameCond(
+        coarse=fold_conditioning(params["coarse"], shape_code, exp_mod, tex_code),
+        fine=fold_conditioning(params["fine"], shape_code, exp_mod, tex_code),
+    )
+
+
+def exp_code_for(params: Params, exp_type) -> torch.Tensor:
     """Expression latent lookup by expression index (bank slot)."""
     return params["exp_codes"][exp_type]
+
+
+class FramePack(NamedTuple):
+    """The field kernel's operands for one frame's conditioning."""
+
+    coarse: FusedParams
+    fine: FusedParams
+
+
+def pack_frame(params: Params, spec: MoFaNeRF, cond: FrameCond) -> FramePack:
+    """Cast and stack both fields' weights for the kernel, once a frame."""
+    return FramePack(pack_fused_params(params["coarse"], cond.coarse, spec.coarse),
+                     pack_fused_params(params["fine"], cond.fine, spec.fine))
+
+
+def _run_field(fused: FusedParams, cfg: FieldConfig, pts, dir_feat_ray, n_samples):
+    """pts: [N, S, 3]; dir_feat_ray: [N, W//2]. Returns ([N,S,3], [N,S]) in
+    f32 through the fused field kernel (its plain version on the CPU)."""
+    n_rays = pts.shape[0]
+    pe = fourier_embed(pts.reshape(-1, 3), cfg.multires)  # [N*S, 63]
+    raw_rgb, raw_sigma = fused_field_apply(
+        fused, pe.contiguous(), dir_feat_ray.contiguous(), cfg, n_samples)
+    return raw_rgb.reshape(n_rays, n_samples, 3), raw_sigma.reshape(n_rays, n_samples)
+
+
+def render_rays(
+    params: Params,
+    spec: MoFaNeRF,
+    cond: FrameCond,
+    rays_o: torch.Tensor,     # [N, 3]
+    rays_d: torch.Tensor,     # [N, 3]
+    generator: torch.Generator | None = None,
+    train: bool = False,
+    draws: Dict[str, torch.Tensor] | None = None,
+    pack: FramePack | None = None,
+) -> Dict[str, torch.Tensor]:
+    """Render a packet of rays. Deterministic when train=False (perturb=0,
+    det importance sampling). With train=True the random numbers are injected
+    through `draws` ({"strat": U(0,1) [N, n_coarse], "pdf": U(0,1)
+    [N, n_importance], "noise_c"/"noise_f": N(0,1) [N, samples]}), and any
+    that is missing is drawn from `generator`.
+
+    `pack` holds the kernel's operands for `cond`; frames pass it so that
+    the weights are cast once, not once a packet."""
+    rc = spec.render
+    n = rays_o.shape[0]
+    dev = rays_o.device
+    if pack is None:
+        pack = pack_frame(params, spec, cond)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    de = fourier_embed(viewdirs, spec.coarse.multires_views)  # [N, 27]
+    # the fine field may use a different view-embedding bandwidth
+    de_fine = (de if spec.fine.multires_views == spec.coarse.multires_views
+               else fourier_embed(viewdirs, spec.fine.multires_views))
+
+    perturb = rc.perturb if train else 0.0
+    noise_std = rc.raw_noise_std if train else 0.0
+    draws = draws or {}
+
+    def normal(name, n_samples):
+        if noise_std <= 0.0:
+            return None
+        if name in draws:
+            return draws[name]
+        if generator is None:
+            raise ValueError("sigma noise requires injected draws or a torch.Generator")
+        return torch.randn((n, n_samples), generator=generator, dtype=torch.float32,
+                           device=generator.device).to(dev)
+
+    near = torch.full((n, 1), rc.near, dtype=torch.float32, device=dev)
+    far = torch.full((n, 1), rc.far, dtype=torch.float32, device=dev)
+    z_vals = stratified_z_vals(draws.get("strat"), near, far, rc.n_coarse, perturb,
+                               rc.lindisp, generator=generator)
+
+    # --- coarse pass
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    dirf_c = de @ params["coarse"]["view"]["w_dirs"]
+    raw_rgb, raw_sigma = _run_field(pack.coarse, spec.coarse, pts, dirf_c, rc.n_coarse)
+    c = composite(raw_rgb, raw_sigma, z_vals, rays_d, noise_std, rc.white_bkgd,
+                  normal("noise_c", rc.n_coarse), rc.sigma_activation)
+
+    out = {}
+    if rc.n_importance > 0:
+        out["rgb0"], out["disp0"], out["acc0"] = c.rgb, c.disp, c.acc
+
+        # --- importance resample (the weights' end points dropped)
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(draws.get("pdf"), z_mid, c.weights[..., 1:-1], rc.n_importance,
+                               det=(perturb == 0.0), generator=generator)
+        if rc.fine_on_union:
+            z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+        else:
+            z_all = torch.sort(z_samples, dim=-1).values
+        n_fine = z_all.shape[-1]
+
+        # --- fine pass
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
+        dirf_f = de_fine @ params["fine"]["view"]["w_dirs"]
+        f_rgb, f_sigma = _run_field(pack.fine, spec.fine, pts, dirf_f, n_fine)
+        cf = composite(f_rgb, f_sigma, z_all, rays_d, noise_std, rc.white_bkgd,
+                       normal("noise_f", n_fine), rc.sigma_activation)
+        out["rgb"], out["disp"], out["acc"] = cf.rgb, cf.disp, cf.acc
+        out["depth"] = cf.depth
+        out["z_std"] = torch.std(z_samples, dim=-1, unbiased=False)
+    else:
+        out["rgb"], out["disp"], out["acc"] = c.rgb, c.disp, c.acc
+        out["depth"] = c.depth
+    return out
+
+
+def _params_device(params: Params) -> torch.device:
+    return params["exp_codes"].device
+
+
+def render_frame(
+    params: Params,
+    spec: MoFaNeRF,
+    cond: FrameCond,
+    H: int,
+    W: int,
+    K,
+    c2w,
+    pack: FramePack | None = None,
+) -> Dict[str, torch.Tensor]:
+    """Render a full HxW frame deterministically, on the params' device (K
+    and c2w may be numpy arrays). Rays are padded with rays of ones to a
+    multiple of `packet_size` and swept packet by packet; the kernel's
+    operands are packed once, before the sweep. Returns maps reshaped to
+    [H, W, ...]. No autograd graph is built."""
+    dev = _params_device(params)
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        if pack is None:
+            pack = pack_frame(params, spec, cond)
+        rays_o, rays_d = get_rays(H, W, K, c2w)
+        n = H * W
+        p = min(spec.render.packet_size, n)
+        n_pad = (-n) % p
+        ones = torch.ones((n_pad, 3), dtype=torch.float32, device=dev)
+        ro = torch.cat([rays_o.reshape(-1, 3), ones]).reshape(-1, p, 3)
+        rd = torch.cat([rays_d.reshape(-1, 3), ones]).reshape(-1, p, 3)
+        maps = [render_rays(params, spec, cond, o, d, train=False, pack=pack)
+                for o, d in zip(ro, rd)]
+    out = {}
+    for k in maps[0]:
+        flat = torch.cat([m[k] for m in maps])[:n]
+        out[k] = flat.reshape((H, W) + flat.shape[1:])
+    return out
+
+
+def render_frame_sharded(*args, **kwargs):
+    """Multi-card full-frame render: not ported yet."""
+    raise NotImplementedError(
+        "render_frame_sharded (rays sharded over several cards) comes with "
+        "scale-out, ROADMAP A11; render_frame renders on one card")
+
+
+def render_path(
+    params: Params,
+    spec: MoFaNeRF,
+    conds,                       # FrameCond or list of FrameCond (one a pose)
+    poses,                       # [N, 3, 4] or [N, 4, 4] c2w sequence
+    hwf,                         # (H, W, focal)
+    render_factor: int = 0,
+):
+    """Render a camera path; `render_factor` downsamples for fast previews.
+    Returns (rgbs [N,H,W,3], disps [N,H,W]) as numpy. One shared FrameCond is
+    packed for the kernel once for the whole path."""
+    H, W, focal = hwf
+    if render_factor:
+        H, W, focal = H // render_factor, W // render_factor, focal / render_factor
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], dtype=np.float32)
+    per_pose = isinstance(conds, (list, tuple)) and not isinstance(conds, FrameCond)
+    with torch.no_grad():
+        shared = None if per_pose else pack_frame(params, spec, conds)
+    rgbs, disps = [], []
+    for i, c2w in enumerate(poses):
+        cond = conds[i] if per_pose else conds
+        out = render_frame(params, spec, cond, H, W, K, np.asarray(c2w)[:3], pack=shared)
+        rgbs.append(out["rgb"].cpu().numpy())
+        disps.append(out["disp"].cpu().numpy())
+    return np.stack(rgbs), np.stack(disps)

@@ -1,0 +1,225 @@
+"""The fused field kernel's operands and plain PyTorch version against the JAX
+Pallas kernel in interpret mode (bf16, weights x 0.4, atol 5e-3 as in
+tests/test_pallas_field.py: contracting weights keep bf16 rounding flips from
+growing through the layers), the f32 plain version against
+apply_field_folded (sum order only: 1e-5), the wrapper's dispatch and checks,
+and -- on a card only -- the CUDA kernel against its plain version."""
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from mofanerf_tpu_torch import bridge
+from mofanerf_tpu_torch.models import field as tfield
+from mofanerf_tpu_torch.ops import field_kernel as fk
+
+T = torch.from_numpy
+
+
+def _jax():
+    """The JAX reference, imported on use: the card machine runs this file's
+    `cuda` tests with no JAX installed (see README, PyTorch port)."""
+    import jax
+    import jax.numpy as jnp
+
+    return (jax, jnp, importlib.import_module("mofanerf_tpu.models.field"),
+            importlib.import_module("mofanerf_tpu.ops.pallas_field"))
+
+
+def _setup(depth, width, dtype, seed, scale=0.4):
+    """JAX params (scaled) carried over the bridge, folded codes, both configs."""
+    jax, jnp, jfield, _ = _jax()
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jcfg = jfield.FieldConfig(depth=depth, width=width, compute_dtype=jdt)
+    tcfg = tfield.FieldConfig(depth=depth, width=width, compute_dtype=tdt)
+    jp = jax.tree.map(lambda w: np.asarray(w) * np.float32(scale),
+                      jfield.init_field_params(jax.random.PRNGKey(seed), jcfg))
+    tp = bridge.field_to_torch(jp, tcfg, "cpu")
+    jp = jax.tree.map(jnp.asarray, jp)
+    codes = [np.full(n, 0.1, np.float32) for n in (50, 30, 256)]
+    jcond = jfield.fold_conditioning(jp, *map(jnp.asarray, codes))
+    tcond = tfield.fold_conditioning(tp, *map(T, codes))
+    return jcfg, tcfg, jp, tp, jcond, tcond
+
+
+def _inputs(width, n_rays, spr, seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n_rays * spr, 3)).astype(np.float32) * 0.5
+    dirf = rng.standard_normal((n_rays, width // 2)).astype(np.float32) * 0.1
+    return pts, dirf
+
+
+@pytest.mark.parametrize("depth,width", [(8, 128), (10, 64)])
+def test_pack_matches_jax_operand_by_operand(depth, width):
+    _, jnp, _, jpallas = _jax()
+    jcfg, tcfg, jp, tp, jcond, tcond = _setup(depth, width, "bfloat16", 0)
+    want = jpallas.pack_fused_params(jp, jcond, jcfg)
+    got = fk.pack_fused_params(tp, tcond, tcfg)
+    assert fk._plan_len(tcfg) == jpallas._plan_len(jcfg) == got.w_stack.shape[0]
+    pe, W = tcfg.pts_embed_dim, width
+
+    def f32(x):
+        return np.asarray(x.astype(jnp.float32))
+
+    # equal on the unpadded parts: the JAX operands are padded to 128 lanes,
+    # the port's to the mma depth (w_pts) and to 4 output columns (w_out).
+    # Weights are the same f32 values rounded to bf16 on both sides; biases
+    # are f32 sums of the same terms (1e-6).
+    np.testing.assert_array_equal(got.w_stack.float().numpy(), f32(want.w_stack))
+    np.testing.assert_array_equal(got.w_pts.float().numpy()[:pe], f32(want.w_pts)[:pe])
+    assert (got.w_pts[pe:] == 0).all() and got.w_pts.shape == (64, W)
+    np.testing.assert_array_equal(got.w_view.float().numpy(), f32(want.w_view))
+    np.testing.assert_array_equal(got.w_out.float().numpy(), f32(want.w_out)[:, :4])
+    np.testing.assert_allclose(got.b_stack.numpy(), np.asarray(want.b_stack), atol=1e-6)
+    np.testing.assert_allclose(got.b_pts.numpy(), np.asarray(want.b_pts), atol=1e-6)
+    np.testing.assert_allclose(got.b_view.numpy(), np.asarray(want.b_view), atol=1e-6)
+    np.testing.assert_allclose(got.b_out.numpy(), np.asarray(want.b_out)[:4], atol=1e-6)
+    # the zero bias of the skip pair's first half
+    skip_first = tcfg.xyz_depth + 1 + tcfg.skip
+    assert (got.b_stack[skip_first] == 0).all()
+    for t in got:
+        assert t.is_contiguous()
+    assert got.w_stack.dtype == torch.bfloat16 and got.b_stack.dtype == torch.float32
+
+
+@pytest.mark.parametrize("depth,width,n_rays,spr", [
+    (8, 128, 8, 16),     # one block of the JAX kernel
+    (10, 128, 8, 16),    # the fine field's depth
+    (8, 64, 32, 8),      # four blocks: block boundaries must not leak state
+])
+def test_plain_version_matches_pallas_kernel(depth, width, n_rays, spr):
+    _, jnp, _, jpallas = _jax()
+    from mofanerf_tpu.ops.embed import fourier_embed as jembed
+
+    jcfg, tcfg, jp, tp, jcond, tcond = _setup(depth, width, "bfloat16", depth)
+    pts, dirf = _inputs(width, n_rays, spr, depth + 1)
+    pe = np.array(jembed(jnp.asarray(pts), jcfg.multires))
+    want_rgb, want_sig = jpallas.fused_field_apply(
+        jpallas.pack_fused_params(jp, jcond, jcfg), jnp.asarray(pe), jnp.asarray(dirf), jcfg,
+        spr, block_rays=8, interpret=True)
+    fused = fk.pack_fused_params(tp, tcond, tcfg)
+    got_rgb, got_sig = fk.fused_field_apply_ref(fused, T(pe), T(dirf), tcfg, spr)
+    assert got_rgb.shape == (n_rays * spr, 3) and got_sig.shape == (n_rays * spr, 1)
+    assert got_rgb.dtype == torch.float32
+    np.testing.assert_allclose(got_rgb.numpy(), np.asarray(want_rgb), atol=5e-3)
+    np.testing.assert_allclose(got_sig.numpy(), np.asarray(want_sig), atol=5e-3)
+    assert np.abs(np.asarray(want_rgb)).max() > 0.05   # not a comparison of zeros
+
+
+@pytest.mark.parametrize("depth,width,spr", [(8, 64, 7), (10, 128, 3)])
+def test_f32_plain_version_is_apply_field_folded(depth, width, spr):
+    _, tcfg, _, tp, _, tcond = _setup(depth, width, "float32", 3, scale=1.0)
+    rng = np.random.default_rng(4)
+    n_rays = 9
+    pe = T(rng.standard_normal((n_rays * spr, tcfg.pts_embed_dim)).astype(np.float32))
+    dirf = T(rng.standard_normal((n_rays, width // 2)).astype(np.float32) * 0.1)
+    fused = fk.pack_fused_params(tp, tcond, tcfg)
+    got_rgb, got_sig = fk.fused_field_apply(fused, pe, dirf, tcfg, spr)   # CPU: plain version
+    want_rgb, want_sig = tfield.apply_field_folded(tp, tcond, pe, dirf, tcfg, samples_per_ray=spr)
+    np.testing.assert_allclose(got_rgb.numpy(), want_rgb.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_sig.numpy(), want_sig.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_version_chunks_rows(monkeypatch):
+    """Chunks must not cut a ray's view features off from its samples."""
+    _, tcfg, _, tp, _, tcond = _setup(8, 64, "bfloat16", 5)
+    rng = np.random.default_rng(6)
+    pe = T(rng.standard_normal((10 * 7, 63)).astype(np.float32))
+    dirf = T(rng.standard_normal((10, 32)).astype(np.float32))
+    fused = fk.pack_fused_params(tp, tcond, tcfg)
+    whole = fk.fused_field_apply_ref(fused, pe, dirf, tcfg, 7)
+    monkeypatch.setattr(fk, "_REF_CHUNK", 16)   # 16 rows: not a multiple of 7 samples
+    parts = fk.fused_field_apply_ref(fused, pe, dirf, tcfg, 7)
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)
+
+
+def test_wrapper_on_cpu_launches_nothing_and_is_differentiable():
+    _, tcfg, _, tp, _, tcond = _setup(8, 64, "float32", 7, scale=1.0)
+    tp["xyz"]["w_pts"].requires_grad_()
+    fused = fk.pack_fused_params(tp, tcond, tcfg)
+    pe = torch.randn((12, 63), generator=torch.Generator().manual_seed(0))
+    dirf = torch.zeros((4, 32))
+    before = fk.launch_count
+    rgb, sig = fk.fused_field_apply(fused, pe, dirf, tcfg, 3)
+    assert fk.launch_count == before
+    (rgb.sum() + sig.sum()).backward()    # the plain version is ordinary tensor code
+    assert tp["xyz"]["w_pts"].grad.abs().sum() > 0
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    _, tcfg, _, tp, _, tcond = _setup(8, 64, "float32", 8)
+    fused = fk.pack_fused_params(tp, tcond, tcfg)
+    pe, dirf = torch.zeros((12, 63)), torch.zeros((4, 32))
+    fk.fused_field_apply(fused, pe, dirf, tcfg, 3)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=96), 3)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=2048), 3)
+    with pytest.raises(ValueError, match="depth >= skip"):
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, depth=5), 3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fk.fused_field_apply(fused, pe, dirf,
+                             dataclasses.replace(tcfg, compute_dtype=torch.float16), 3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fk.fused_field_apply(fused, pe.to("meta"), dirf.to("meta"), tcfg, 3)
+    with pytest.raises(ValueError, match="pts_embed has dtype"):
+        fk.fused_field_apply(fused, pe.double(), dirf, tcfg, 3)
+    with pytest.raises(ValueError, match="w_stack has dtype"):   # packed for another dtype
+        fk.fused_field_apply(fused, pe, dirf,
+                             dataclasses.replace(tcfg, compute_dtype=torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fk.fused_field_apply(fused, torch.zeros((63, 12)).t(), dirf, tcfg, 3)
+    with pytest.raises(ValueError, match="rays x"):
+        fk.fused_field_apply(fused, pe, dirf, tcfg, 4)
+    with pytest.raises(ValueError, match="dir_feat has shape"):
+        fk.fused_field_apply(fused, pe, torch.zeros((4, 16)), tcfg, 3)
+    with pytest.raises(ValueError, match="w_stack has shape"):   # packed for another depth
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, depth=10), 3)
+    with pytest.raises(ValueError, match="is on"):
+        fk.fused_field_apply(fused._replace(b_out=fused.b_out.to("meta")), pe, dirf, tcfg, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,depth,width,n_rays,spr", [
+    ("float32", 8, 256, 37, 64),      # the coarse field, ragged against its row block
+    ("bfloat16", 8, 256, 37, 63),
+    ("float32", 10, 1024, 5, 127),    # the fine field
+    ("bfloat16", 10, 1024, 21, 127),
+    ("bfloat16", 6, 64, 300, 5),      # no post layers, many warp rows
+    ("float32", 7, 192, 11, 9),       # a width that is not a power of two
+    ("bfloat16", 8, 512, 3, 1),       # fewer rows than one block
+])
+def test_cuda_kernel_matches_plain_version(dtype, depth, width, n_rays, spr):
+    """On the card: the hand-written kernel against its plain version. f32
+    differs in sum order only (1e-4 of the output's scale); bf16 is held at
+    atol 5e-3 with contracting weights (x 0.4), as the TPU kernel's test is."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tdt = getattr(torch, dtype)
+    cfg = tfield.FieldConfig(depth=depth, width=width, compute_dtype=tdt)
+    gen = torch.Generator().manual_seed(depth * width)
+    params = tfield.init_field_params(gen, cfg, device=dev)
+    if tdt == torch.bfloat16:
+        params = bridge.map_tree(lambda w: w * 0.4, params)
+    codes = [(torch.randn(n, generator=gen) * 0.3).to(dev) for n in (50, 30, 256)]
+    fused = fk.pack_fused_params(params, tfield.fold_conditioning(params, *codes), cfg)
+    pe = torch.randn((n_rays * spr, 63), generator=gen).to(dev)
+    dirf = (torch.randn((n_rays, width // 2), generator=gen) * 0.1).to(dev)
+    before = fk.launch_count
+    with torch.no_grad():
+        got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, spr), dim=-1)
+        torch.cuda.synchronize()
+        assert fk.launch_count == before + 1
+        want = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, spr), dim=-1)
+    assert got.shape == (n_rays * spr, 4) and torch.isfinite(got).all()
+    tol = 5e-3 if tdt == torch.bfloat16 else 1e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    # the kernel builds no graph: operands that require grad are refused
+    with pytest.raises(ValueError, match="inference only"):
+        fk.fused_field_apply(fused, pe.requires_grad_(), dirf, cfg, spr)

@@ -102,3 +102,74 @@ def test_entry_points_default_to_the_card(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_teacher_entry_points_default_to_the_card(tmp_path):
+    """The teacher slice's entry points ask for the card too."""
+    from mofanerf_tpu_torch import bridge
+    from mofanerf_tpu_torch.cli import run_render
+    from mofanerf_tpu_torch.models.field import FieldConfig, init_field_params
+    from mofanerf_tpu_torch.models.tex_encoder import init_tex_encoder_params
+    from mofanerf_tpu_torch.render.renderer import MoFaNeRF, init_model_params
+
+    cfg = FieldConfig(depth=6, width=64)
+    spec = MoFaNeRF(coarse=cfg, fine=cfg, uv_size=128)
+    gen = torch.Generator().manual_seed(0)
+    on_cpu = bridge.to_numpy(init_model_params(gen, spec, device="cpu"))
+    flax_like = {"params": {"mu": {"kernel": np.zeros((512, 256), np.float32),
+                                   "bias": np.zeros(256, np.float32)}}}
+    teacher_argv = ["--out_dir", str(tmp_path / "t"), "--n_views", "1", "--render_factor", "64",
+                    "--netwidth", "64", "--netwidth_fine", "64", "--N_samples", "4",
+                    "--N_importance", "4", "--basedir", str(tmp_path / "logs"),
+                    "--uvdir", str(tmp_path / "uv"),
+                    "--shape_codes_path", str(tmp_path / "none.npy")]
+    calls = [
+        lambda: init_field_params(gen, cfg),
+        lambda: init_model_params(gen, spec),
+        lambda: init_tex_encoder_params(gen, tex_dim=16, uv_size=128),
+        lambda: bridge.field_to_torch(on_cpu["coarse"], cfg),
+        lambda: run_render.main(teacher_argv),
+    ]
+    if torch.cuda.is_available():
+        assert init_field_params(gen, cfg)["xyz"]["w_pts"].device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # a malformed tree fails on its layout, before any device is asked for
+    with pytest.raises(ValueError, match="layers"):
+        bridge.tex_encoder_to_torch(flax_like)
+
+
+def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
+    """The CLI's teacher route on the CPU at a tiny size, and its refusals:
+    each names the ROADMAP item that lifts it."""
+    from mofanerf_tpu_torch.cli import run_render
+
+    np.save(tmp_path / "factors_id.npy",
+            np.random.default_rng(0).standard_normal((3, 50)).astype(np.float32))
+    argv = ["--out_dir", str(tmp_path / "t"), "--n_views", "2", "--render_factor", "64",
+            "--netwidth", "64", "--netwidth_fine", "64", "--N_samples", "6",
+            "--N_importance", "6", "--basedir", str(tmp_path / "logs"),
+            "--uvdir", str(tmp_path / "uv"), "--person", "2", "--expression", "5",
+            "--shape_codes_path", str(tmp_path / "factors_id.npy"), "--device", "cpu"]
+    frames = run_render.main(argv)
+    assert frames.shape == (2, 8, 8, 3) and np.isfinite(frames).all()
+    assert frames.min() >= 0.0 and frames.max() <= 1.0
+    assert sorted(os.listdir(tmp_path / "t")) == ["000.png", "001.png"]
+    # another person's shape code renders another frame
+    other = run_render.main(argv[:argv.index("--person")] + ["--person", "0"]
+                            + argv[argv.index("--person") + 2:])
+    assert np.abs(other - frames).max() > 0
+
+    with pytest.raises(SystemExit, match="ROADMAP A6"):
+        run_render.main(argv + ["--fast"])
+    os.makedirs(tmp_path / "uv" / "2")
+    (tmp_path / "uv" / "2" / "1_neutral.jpg").write_bytes(b"not read")
+    with pytest.raises(SystemExit, match="ROADMAP A5"):
+        run_render.main(argv)
+    os.makedirs(tmp_path / "ckpts" / "1000")
+    with pytest.raises(SystemExit, match="ROADMAP A3"):
+        run_render.main(argv + ["--person", "1", "--ckpt_dir", str(tmp_path / "ckpts")])
+    with pytest.raises(SystemExit, match="ROADMAP A4"):
+        run_render.main(argv + ["--person", "1", "--distill"])

@@ -89,10 +89,28 @@ def test_fold_student_code_and_point_apply():
 
 
 def test_field_config_waits_for_the_next_slice():
-    with pytest.raises(NotImplementedError, match="A2"):
-        student.FieldConfig()
-    with pytest.raises(NotImplementedError):
-        student.point_apply({}, None, None, None, object())
+    """The wait is over: `student.FieldConfig` is the real config of the
+    conditioned field and `point_apply` dispatches it to apply_field_folded,
+    as the JAX package's does (f32, sum order only: 1e-5)."""
+    from mofanerf_tpu.models import field as jfield
+    from mofanerf_tpu_torch.models import field as tfield
+
+    assert student.FieldConfig is tfield.FieldConfig
+    kw = dict(depth=8, width=32)
+    jcfg, tcfg = jfield.FieldConfig(**kw), student.FieldConfig(**kw)
+    jp = jax.tree.map(np.asarray, jfield.init_field_params(jax.random.PRNGKey(0), jcfg))
+    tp = bridge.field_to_torch(jp, tcfg, device="cpu")
+    rng = np.random.default_rng(1)
+    codes = [rng.standard_normal(n).astype(np.float32) * 0.3 for n in (50, 30, 256)]
+    jcond = jfield.fold_conditioning(jax.tree.map(jnp.asarray, jp), *map(jnp.asarray, codes))
+    tcond = tfield.fold_conditioning(tp, *map(T, codes))
+    pe = rng.standard_normal((12, tcfg.pts_embed_dim)).astype(np.float32)
+    dirf = rng.standard_normal((3, 16)).astype(np.float32) * 0.1
+    jr, js = jstudent.point_apply(jax.tree.map(jnp.asarray, jp), jcond, jnp.asarray(pe),
+                                  jnp.asarray(dirf), jcfg, samples_per_ray=4)
+    tr, ts = student.point_apply(tp, tcond, T(pe), T(dirf), tcfg, samples_per_ray=4)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
 
 
 def _model(seed=3):
