@@ -15,9 +15,14 @@ Phases, each failing loudly:
        16384 rays, hit and miss rays, unnormalised directions), bf16 and f32,
        with and without white background;
      - the field kernel at full width, both of the teacher's fields (coarse
-       8x256 with 64 samples a ray, fine 10x1024 with 128), bf16 and f32, at
-       a ragged shape and at the packet shape of the teacher path; bf16 once
-       more at the packet shape with contracting weights (x 0.4, atol 5e-3);
+       8x256 with 64 samples a ray, fine 10x1024 with 128: the two widths the
+       wgmma design takes in bf16; f32 runs the mma.sync design), at ragged
+       shapes (fewer rows than one row block; fewer blocks than the card has
+       SMs, with blocks that span rays; more blocks than SMs with a ragged
+       last one) and at the packet shape of the teacher path; bf16 once more
+       at the packet shape with contracting weights (x 0.4, atol 5e-3);
+     - a yardstick, not on any path: one hidden layer's product at the packet
+       shapes through torch.matmul (`layer_matmul_ms`);
   4. serving path: a seeded bf16 student artifact through the run_render CLI
      (4 views at 512x512), then a 3-pose x 3-expression rig of a
      code-conditioned student through render_path_serve;
@@ -62,6 +67,9 @@ FIELD_TOL = {"bfloat16": (6e-2, 6e-3), "float32": (1e-4, 1e-5)}
 # bf16 is also held sharply at the packet shape, with contracting weights: the
 # scale and the atol of the TPU kernel's own test
 CONTRACT, CONTRACT_ATOL = 0.4, 5e-3
+# (rays, samples a ray) of the field kernel's small ragged checks: fewer rows than one row
+# block; fewer blocks than SMs (idle CTAs in a persistent grid), 67 samples dividing no block
+RAGGED = ((1, 50), (61, 67))
 
 
 def fail(failures, msg):
@@ -208,7 +216,7 @@ def field_inputs(cfg, w_dirs, n_rays, n_samples, seed, dev):
 
 def field_kernel_phase(failures, dev):
     """Kernel B1 against its plain version at full width: both fields, bf16
-    and f32, at a ragged shape and at the packet shape of the main path."""
+    and f32, at ragged shapes and at the packet shape of the main path."""
     import torch
 
     from mofanerf_tpu_torch.bridge import map_tree
@@ -241,7 +249,7 @@ def field_kernel_phase(failures, dev):
             n_time = PACKET if (dt == torch.bfloat16 or name == "coarse") else PACKET // 8
             worst = 0.0
             ref_time = None
-            for n_rays, ns in ((333, n_samples - 1), (n_time, n_samples)):
+            for n_rays, ns in RAGGED + ((333, n_samples - 1), (n_time, n_samples)):
                 pe, dirf = field_inputs(cfg, params["view"]["w_dirs"], n_rays, ns, 5, dev)
                 got, ref, ref_time = both(fused, pe, dirf, cfg, ns)
                 # tolerance scaled to the output's magnitude. f32: only the order of the
@@ -276,7 +284,7 @@ def field_kernel_phase(failures, dev):
             if dt == torch.bfloat16:
                 # the sharp bf16 check, at the packet shape of the main path: weights
                 # x 0.4 contract, so a rounding flip dies out instead of growing through
-                # the layers, and one wrong warp tile or ldmatrix lane stands out
+                # the layers, and one wrong tile, swizzled chunk or accumulator lane stands out
                 small = map_tree(lambda w: w * CONTRACT, params)
                 fused_c = fk.pack_fused_params(small, fold_conditioning(small, *codes), cfg)
                 got, ref, _ = both(fused_c, pe, dirf * CONTRACT, cfg, n_samples)
@@ -320,6 +328,27 @@ def field_kernel_phase(failures, dev):
                   f"rate, not a floor: the stream mostly hits L2); {bound / ms:.1%} of bound",
                   flush=True)
     return rows
+
+
+def layer_matmul_phase(dev):
+    """A yardstick, not on any path: one hidden layer's product at the packet shape of each
+    field through torch.matmul (bf16). It says what rate this card gives a K = 1024 and a
+    K = 256 product, and so what a fused kernel has to beat to be worth fusing."""
+    import torch
+
+    out = {}
+    for name, (_, width, n_samples) in FIELDS.items():
+        rows = PACKET * n_samples
+        gen = torch.Generator().manual_seed(9)
+        a = torch.randn((rows, width), generator=gen).to(dev, torch.bfloat16)
+        w = (torch.randn((width, width), generator=gen) / width ** 0.5).to(dev, torch.bfloat16)
+        ms = cuda_ms(lambda: torch.matmul(a, w), iters=20)
+        tflops = 2 * rows * width * width / ms / 1e9
+        out[name] = {"rows": rows, "width": width, "ms": ms, "tflops": tflops}
+        print(f"yardstick {name}: torch.matmul [{rows} x {width}] @ [{width} x {width}] bf16 "
+              f"{ms:.4f} ms, {tflops:.1f} TFLOP/s", flush=True)
+    print(json.dumps({"layer_matmul_ms": out}), flush=True)
+    return out
 
 
 def n_packets(n_rays, packet_size, n_eval=None):
@@ -628,6 +657,18 @@ def main(argv) -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     failures: list = []
+    # the field kernel's bf16 products at its two wgmma widths must be wgmma in the machine
+    # code too: count HGMMA in the library's SASS where the toolkit's cuobjdump is at hand
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(libs["field_kernel"])],
+                              capture_output=True, text=True).stdout
+        n_hgmma = sass.count("HGMMA")
+        print(f"sass field_kernel: {n_hgmma} HGMMA instructions", flush=True)
+        if n_hgmma == 0:
+            fail(failures, "the field kernel's library holds no HGMMA instruction")
+    else:
+        print("sass field_kernel: not checked (no cuobjdump beside nvcc)", flush=True)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     rows = kernel_phase(failures, dev)
@@ -635,6 +676,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     field_rows = field_kernel_phase(failures, dev)
     print(f"kernel phase (field kernel): {time.perf_counter() - t0:.1f} s", flush=True)
+    layer_matmul_phase(dev)
     if kernel_only:
         return 1 if failures else 0
     t0 = time.perf_counter()

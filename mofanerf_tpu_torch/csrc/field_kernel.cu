@@ -10,482 +10,45 @@
 // 2*(depth+1) hidden layers: 53.6 MFLOP at the fine field (depth 10, W 1024, L 25) and
 // 2.85 MFLOP at the coarse one (depth 8, W 256, L 21). A packet of 8192 rays is 56 TFLOP
 // fine (128 samples) and 1.5 TFLOP coarse (64 samples): 57 ms and 1.5 ms at 989 TFLOP/s
-// dense bf16. Its own bytes are small (252 B in, 16 B out a point, the weights once).
+// dense bf16. Its own bytes are small (252 B in, 16 B out a point, the weights once), so
+// operations bound it.
 //
-// What most likely bounds it on this card: not the operations but the weight stream (a
-// hypothesis from the arithmetic below; no trace of L2 throughput backs it yet). A CTA keeps the
+// What bounds a design on this card is how it feeds the tensor cores. A CTA keeps the
 // activations of its rows in shared memory through all L+2 layers, so device memory sees
-// only points in and 4 floats out; but it must then stream every layer's weights once, and
-// the fine stack is 52 MB, more than L2 holds. With 227 KB of shared memory a CTA holds two
-// [rows, W] activations (the running one, and the saved xyz_code / sigma_feat that the skip
-// pair and the output head read) plus a ring of weight chunks:
-//   W = 1024 bf16: 32 rows  (2 * 32 * 1032 * 2 B = 132 KB, ring 3 * 16 * 1032 * 2 B = 99 KB)
-//   W = 256  bf16: 128 rows (2 * 128 * 264 * 2 B = 135 KB, ring 25 KB)
-// At 32 rows a CTA does 32 * 53.6 MFLOP against 52 MB of weights, 33 FLOP a byte, far
-// under the card's ~295: a packet of 1M fine points is 32768 CTAs * 52 MB = 1.7 TB of
-// weight reads. Out of device memory (3.35 TB/s) that alone would take 0.51 s; the kernel
-// runs under that figure, so most of it must hit L2 (the CTAs in flight walk the stack
-// together), and 0.51 s is no floor. The tensor cores would need 57 ms. The coarse stack
-// (2.75 MB) stays in L2 and has no such problem.
-// The row block is the largest the two activations and a 3-deep ring allow; the in-place
-// layer update keeps the accumulators of a whole [rows, W] output in registers (64 a
-// thread), which is what caps the fine field at 32 rows a CTA. Lifting it (clusters that
-// split a layer's columns and share activations through distributed shared memory, or
-// wgmma with larger tiles) is a redesign left for later.
+// only points in and 4 floats out; but it must then stream every layer's weights once a
+// row block (the fine stack is 52 MB), and the rows that share one read of the stack set
+// that stream: 33 FLOP a weight byte at 32 rows, far under the card's ~295. Timing variants
+// (utils/field_variants.py, one H100 SXM at 700 W, the fine field) showed where the mma.sync
+// design's time went: more than half in starting cp.async copies and drawing that stream, a
+// tenth in the block-wide barrier every 16 rows of K, and the rest in ldmatrix + mma.sync,
+// which alone ran at 2.4 times the tensor cores' time; an L2-resident stack changed nothing.
+// The wgmma design answers each: copies that cost no thread an instruction, no block-wide
+// barrier in a k loop, wgmma on 64-row tiles, and twice the rows a weight read at W = 1024.
+// The same variants read its tensor-core side at 1.5 times the bound and its waits for the
+// stream, through a ring of three stages, at about an eighth of a launch.
 //
-// Design: 16 warps a CTA, each owning a [32 rows, 64 columns] tile of every layer's output
-// (W/64 warps across, the rest down: 1 x 16 at W = 1024, 4 x 4 at W = 256). All weights of
-// the kernel form one stream of [16, W] chunks (w_pts, the stack, w_view) that every thread
-// helps copy with cp.async into a 3-deep ring, crossing layer boundaries without draining.
-// bf16 products run on the tensor cores (mma.sync m16n8k16, f32 accumulators, A through
-// ldmatrix, the [in, out] weights as B through ldmatrix.trans); f32 products run as FFMA
-// (tensor-core TF32 would drop the f32 contract) with half the rows a warp. A layer's
-// output overwrites its input after a barrier. The skip pair accumulates both halves in
-// the same registers. Raw sigma and rgb are short dot products done by a warp a row. Rows
-// past n_rows are computed on zeros and not written, so any N is accepted; a row's ray is
-// row / samples.
+// Two designs, one an instantiation, chosen by dtype and width in field_apply below:
+//   field_kernel_wgmma.cuh  bf16 at W = 256 and W = 1024 (the teacher's two fields):
+//       persistent warp-specialised CTAs, wgmma.mma_async on 64-row tiles, a ring of
+//       pre-tiled 32 KB weight tiles filled by bulk copies that complete on mbarriers, no
+//       block-wide barrier in a k loop, 128 (W = 256) or 64 (W = 1024) rows a CTA.
+//   field_kernel_mma.cuh    f32 (FFMA; tensor-core TF32 would drop the f32 contract) and bf16
+//       at the other multiples of 64: cp.async ring, ldmatrix + mma.sync.
 //
-// Precision contract (pallas_field.py:148-204): every product rounds both operands to the
-// compute type and accumulates in f32; bias add and ReLU are f32; each layer's output is
-// rounded to the compute type; the skip pair's first half is not rounded before the sum;
-// pre + dir_feat is f32, then ReLU, then rounded; the output head is f32.
+// Precision contract (pallas_field.py:148-204), the same for both: every product rounds both
+// operands to the compute type and accumulates in f32; bias add and ReLU are f32; each
+// layer's output is rounded to the compute type; the skip pair's first half is not rounded
+// before the sum; pre + dir_feat is f32, then ReLU, then rounded; the output head is f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "field_kernel_mma.cuh"
+#include "field_kernel_wgmma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kPad = 8;          // row padding in elements: 16-byte rows, spread banks
-constexpr int kWarpCols = 64;    // output columns a warp owns
-constexpr int kStages = 3;       // weight chunks in flight
-constexpr int kMaxWarps = 16;
-constexpr int kMaxWidth = 1024;
-constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a CTA can ask for on sm_90
-
-template <typename T>
-struct Traits;
-
-template <>
-struct Traits<float> {
-  static constexpr int kWarpRows = 16;  // a 4x8 FFMA tile a thread
-  static constexpr int kChunk = 8;      // weight rows a chunk (same bytes as bf16's)
-  static constexpr int kTiles = 8;      // accumulators a thread, in fours
-  __device__ static float to_f(float x) { return x; }
-  __device__ static float from_f(float x) { return x; }
-};
-
-template <>
-struct Traits<bf16> {
-  static constexpr int kWarpRows = 32;  // two m16 strips
-  static constexpr int kChunk = 16;     // one mma depth
-  static constexpr int kTiles = 16;     // 2 strips x 8 n8 tiles
-  __device__ static float to_f(bf16 x) { return __bfloat162float(x); }
-  __device__ static bf16 from_f(float x) { return __float2bfloat16_rn(x); }
-};
-
-template <typename T>
-struct Args {
-  const float* x;        // [N, pe] embedded points
-  const float* dirf;     // [R, W/2] per-ray view features, N = R * samples
-  const T* w_pts;        // [k0, W], k0 = pe rounded up to 16, padding rows zero
-  const float* b_pts;    // [W]
-  const T* w_stack;      // [L, W, W]
-  const float* b_stack;  // [L, W]
-  const T* w_view;       // [W, W/2]
-  const float* b_view;   // [W/2]
-  const T* w_out;        // [W + W/2, 4]: rows :W col 3 alpha, rows W: cols 0..2 rgb
-  const float* b_out;    // [4]
-  float* out;            // [N, 4]: raw rgb, raw sigma
-  int n_rows, samples, pe, width, depth, skip, xyz_depth;
-  int warps_m;           // warp rows of the CTA, chosen by the host
-};
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Shared-memory plan, computed the same way on the host (launch size) and in the kernel.
-struct Layout {
-  int warps_n, warps_m;
-  int rows;         // point rows of the CTA
-  int ld;           // row stride of activations and staged weights (elements)
-  int k0;           // input-layer fan-in, padded
-  int stage_elems;  // elements of one staged weight chunk
-  size_t off_saved, off_stage, off_sigma, bytes;
-};
-
-template <typename T>
-__host__ __device__ inline Layout make_layout(int width, int pe, int warps_m) {
-  Layout L;
-  L.warps_n = width / kWarpCols;
-  L.warps_m = warps_m;
-  L.rows = warps_m * Traits<T>::kWarpRows;
-  L.ld = width + kPad;
-  L.k0 = round_up(pe, 16);
-  L.stage_elems = Traits<T>::kChunk * L.ld;
-  L.off_saved = align128(size_t(L.rows) * L.ld * sizeof(T));
-  L.off_stage = L.off_saved + align128(size_t(L.rows) * L.ld * sizeof(T));
-  L.off_sigma = L.off_stage + align128(size_t(kStages) * L.stage_elems * sizeof(T));
-  L.bytes = L.off_sigma + size_t(L.rows) * sizeof(float);
-  return L;
-}
-
-// The most warp rows (<= 16 warps in all) whose plan fits in shared memory; 0 if none.
-template <typename T>
-inline int pick_warps_m(int width, int pe) {
-  if (width % kWarpCols != 0 || width < kWarpCols || width > kMaxWidth) return 0;
-  if (pe < 1 || round_up(pe, 16) > width) return 0;
-  int wm = kMaxWarps / (width / kWarpCols);
-  while (wm > 0 && make_layout<T>(width, pe, wm).bytes > kSmemLimit) --wm;
-  return wm;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a @ b for a 16x16 bf16 A fragment and a 16x8 bf16 B fragment, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += a[0:rows, 0:kChunk] @ w[0:kChunk, 0:64] for the warp's tile. `a` points at the
-// tile's first row and the chunk's first k column of an activation (row stride ld); `w` at
-// the chunk's first row and the tile's first column of a staged chunk (row stride ld).
-// Only the first `ncols` columns of the tile exist (a multiple of 16).
-//
-// bf16: acc[strip * 8 + j] is the m16n8 accumulator of row strip `strip`, n8 tile j.
-__device__ __forceinline__ void warp_mma_chunk(float (&acc)[16][4], const bf16* a, const bf16* w,
-                                               int ld, int ncols, int lane) {
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;  // ldmatrix row address of this lane
-  uint32_t a0[4], a1[4];
-  ldmatrix_x4(a0, a + lrow * ld + lcol);
-  ldmatrix_x4(a1, a + (16 + lrow) * ld + lcol);
-#pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
-    if (jp * 16 < ncols) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, w + lrow * ld + jp * 16 + lcol);
-      mma_bf16(acc[2 * jp], a0, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], a0, b[2], b[3]);
-      mma_bf16(acc[8 + 2 * jp], a1, b[0], b[1]);
-      mma_bf16(acc[8 + 2 * jp + 1], a1, b[2], b[3]);
-    }
-  }
-}
-
-// f32: a lane holds rows {i * 4 + lane / 8} and columns (lane % 8) * 8 + {0..7} of the
-// [16, 64] tile; acc[i * 2 + j / 4][j % 4] is element (row i, column j) of that.
-__device__ __forceinline__ void warp_mma_chunk(float (&acc)[8][4], const float* a, const float* w,
-                                               int ld, int ncols, int lane) {
-  const int lr = lane >> 3, lc = (lane & 7) * 8;
-  if (lc >= ncols) return;
-#pragma unroll
-  for (int kk = 0; kk < Traits<float>::kChunk; ++kk) {
-    float av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(i * 4 + lr) * ld + kk];
-    const float4 b0 = *reinterpret_cast<const float4*>(w + kk * ld + lc);
-    const float4 b1 = *reinterpret_cast<const float4*>(w + kk * ld + lc + 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[i * 2][0] = fmaf(av[i], b0.x, acc[i * 2][0]);
-      acc[i * 2][1] = fmaf(av[i], b0.y, acc[i * 2][1]);
-      acc[i * 2][2] = fmaf(av[i], b0.z, acc[i * 2][2]);
-      acc[i * 2][3] = fmaf(av[i], b0.w, acc[i * 2][3]);
-      acc[i * 2 + 1][0] = fmaf(av[i], b1.x, acc[i * 2 + 1][0]);
-      acc[i * 2 + 1][1] = fmaf(av[i], b1.y, acc[i * 2 + 1][1]);
-      acc[i * 2 + 1][2] = fmaf(av[i], b1.z, acc[i * 2 + 1][2]);
-      acc[i * 2 + 1][3] = fmaf(av[i], b1.w, acc[i * 2 + 1][3]);
-    }
-  }
-}
-
-// Hand every accumulator of the warp's tile to epi(row, column, value), rows and columns
-// relative to the tile, columns below ncols only.
-template <class Epi>
-__device__ __forceinline__ void warp_epilogue(const float (&acc)[16][4], int ncols, int lane,
-                                              Epi epi) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int strip = 0; strip < 2; ++strip) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      if (c < ncols) {
-        const float(&d)[4] = acc[strip * 8 + j];
-        epi(strip * 16 + g, c, d[0]);
-        epi(strip * 16 + g, c + 1, d[1]);
-        epi(strip * 16 + g + 8, c, d[2]);
-        epi(strip * 16 + g + 8, c + 1, d[3]);
-      }
-    }
-  }
-}
-
-template <class Epi>
-__device__ __forceinline__ void warp_epilogue(const float (&acc)[8][4], int ncols, int lane,
-                                              Epi epi) {
-  const int lr = lane >> 3, lc = (lane & 7) * 8;
-  if (lc >= ncols) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) epi(i * 4 + lr, lc + j, acc[i * 2 + j / 4][j % 4]);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxWarps * 32) field_kernel(Args<T> p) {
-  using Tr = Traits<T>;
-  constexpr int KC = Tr::kChunk;
-  constexpr int kVec = 16 / int(sizeof(T));  // elements a 16-byte copy moves
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout<T>(p.width, p.pe, p.warps_m);
-  T* h = reinterpret_cast<T*>(smem);                        // [rows, ld] running activation
-  T* saved = reinterpret_cast<T*>(smem + L.off_saved);      // [rows, ld] xyz_code, sigma_feat
-  T* stage = reinterpret_cast<T*>(smem + L.off_stage);      // [kStages][KC, ld] weight ring
-  float* sig = reinterpret_cast<float*>(smem + L.off_sigma);  // [rows] raw sigma
-
-  const int W = p.width, W2 = W / 2, ld = L.ld;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int warp = tid / 32, lane = tid % 32, nwarps = nthreads / 32;
-  const int row0 = (warp / L.warps_n) * Tr::kWarpRows;  // the warp's tile
-  const int col0 = (warp % L.warps_n) * kWarpCols;
-  const long long grow0 = static_cast<long long>(blockIdx.x) * L.rows;
-  const int trunk_len = p.depth + 1;
-  const int n_stack = p.xyz_depth + 2 * trunk_len;
-
-  // --- the weight stream: chunk i of [w_pts | w_stack | w_view], KC rows each
-  const int c_pts = L.k0 / KC, c_stack = n_stack * (W / KC), c_view = W / KC;
-  const int c_total = c_pts + c_stack + c_view;
-  auto fetch = [&](int i) {
-    if (i < c_total) {
-      const T* src;
-      int ncols = W;
-      if (i < c_pts) {
-        src = p.w_pts + size_t(i) * KC * W;
-      } else if (i < c_pts + c_stack) {
-        src = p.w_stack + size_t(i - c_pts) * KC * W;
-      } else {
-        src = p.w_view + size_t(i - c_pts - c_stack) * KC * W2;
-        ncols = W2;
-      }
-      T* dst = stage + (i % kStages) * L.stage_elems;
-      const int vecs = ncols / kVec;
-      for (int v = tid; v < KC * vecs; v += nthreads) {
-        const int r = v / vecs, c = (v - r * vecs) * kVec;
-        cp_async16(dst + r * ld + c, src + size_t(r) * ncols + c);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the wait count uniform
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) fetch(s);
-
-  // --- the embedded points of the CTA's rows, rounded, fan-in zero-padded to k0
-  for (int i = tid; i < L.rows * L.k0; i += nthreads) {
-    const int r = i / L.k0, c = i - r * L.k0;
-    const long long gr = grow0 + r;
-    float v = 0.f;
-    if (c < p.pe && gr < p.n_rows) v = p.x[size_t(gr) * p.pe + c];
-    h[r * ld + c] = Tr::from_f(v);
-  }
-
-  float acc[Tr::kTiles][4];
-  auto clear = [&]() {
-#pragma unroll
-    for (int j = 0; j < Tr::kTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  };
-  clear();
-
-  // acc += a[:, 0:kdim] @ (the next kdim / KC chunks of the stream)[:, 0:ncols]
-  int ci = 0;
-  auto gemm = [&](const T* a, int kdim, int ncols) {
-    for (int k = 0; k < kdim; k += KC, ++ci) {
-      cp_async_wait<kStages - 2>();  // this thread's part of chunk ci has landed
-      __syncthreads();               // ... everyone's has, and chunk ci-1 is no longer read
-      fetch(ci + kStages - 1);       // into the slot chunk ci-1 held
-      if (col0 < ncols) {
-        warp_mma_chunk(acc, a + row0 * ld + k, stage + (ci % kStages) * L.stage_elems + col0,
-                       ld, ncols - col0, lane);
-      }
-    }
-  };
-
-  // h = round(relu(acc + bias)) in place (and into `saved` when asked), acc = 0
-  auto dense_epilogue = [&](const float* bias, bool save) {
-    __syncthreads();  // every warp has read its last input of this layer
-    warp_epilogue(acc, W - col0, lane, [&](int r, int c, float v) {
-      const int col = col0 + c, at = (row0 + r) * ld + col;
-      const T y = Tr::from_f(fmaxf(v + bias[col], 0.f));
-      h[at] = y;
-      if (save) saved[at] = y;
-    });
-    clear();
-    __syncthreads();
-  };
-
-  // --- xyz encoder
-  gemm(h, L.k0, W);
-  dense_epilogue(p.b_pts, p.xyz_depth == 0);
-  int li = 0;
-  for (; li < p.xyz_depth; ++li) {
-    gemm(h, W, W);
-    dense_epilogue(p.b_stack + size_t(li) * W, li == p.xyz_depth - 1);
-  }
-
-  // --- sigma trunk on xyz_code, then rgb trunk on sigma_feat. Layer t of a trunk: 0 is L0,
-  // 1..skip the mid layers, skip+1 and skip+2 the skip pair (saved @ W, then h @ W' + b,
-  // summed unrounded in the accumulators), the rest the post layers.
-  for (int trunk = 0; trunk < 2; ++trunk) {
-    for (int t = 0; t < trunk_len; ++t, ++li) {
-      const bool pair_first = t == p.skip + 1;
-      gemm(pair_first ? saved : h, W, W);
-      if (!pair_first) {
-        dense_epilogue(p.b_stack + size_t(li) * W, trunk == 0 && t == trunk_len - 1);
-      }
-    }
-    if (trunk == 0) {
-      // raw sigma = sigma_feat @ w_alpha + b_alpha, a row a warp
-      const float b_alpha = p.b_out[3];
-      for (int r = warp; r < L.rows; r += nwarps) {
-        float s = 0.f;
-        for (int c = lane; c < W; c += 32) {
-          s = fmaf(Tr::to_f(h[r * ld + c]), Tr::to_f(p.w_out[size_t(c) * 4 + 3]), s);
-        }
-        s = warp_sum(s);
-        if (lane == 0) sig[r] = s + b_alpha;
-      }
-    }
-  }
-
-  // --- view layer: relu(rgb_feat @ w_view + b_view + dir_feat[ray]) into h[:, 0:W/2]
-  gemm(h, W, W2);
-  __syncthreads();
-  if (col0 < W2) {
-    warp_epilogue(acc, W2 - col0, lane, [&](int r, int c, float v) {
-      const int col = col0 + c;
-      long long gr = grow0 + row0 + r;
-      if (gr >= p.n_rows) gr = p.n_rows - 1;  // padding rows read a real ray
-      const float pre = v + p.b_view[col] + p.dirf[size_t(gr / p.samples) * W2 + col];
-      h[(row0 + r) * ld + col] = Tr::from_f(fmaxf(pre, 0.f));
-    });
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // --- raw rgb = view @ w_rgb + b_rgb, a row a warp; write [rgb, sigma]
-  const T* w_rgb = p.w_out + size_t(W) * 4;
-  for (int r = warp; r < L.rows; r += nwarps) {
-    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < W2; c += 32) {
-      const float a = Tr::to_f(h[r * ld + c]);
-      s0 = fmaf(a, Tr::to_f(w_rgb[size_t(c) * 4]), s0);
-      s1 = fmaf(a, Tr::to_f(w_rgb[size_t(c) * 4 + 1]), s1);
-      s2 = fmaf(a, Tr::to_f(w_rgb[size_t(c) * 4 + 2]), s2);
-    }
-    s0 = warp_sum(s0);
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    const long long gr = grow0 + r;
-    if (lane == 0 && gr < p.n_rows) {
-      reinterpret_cast<float4*>(p.out)[gr] =
-          make_float4(s0 + p.b_out[0], s1 + p.b_out[1], s2 + p.b_out[2], sig[r]);
-    }
-  }
-}
-
-template <typename T>
-int launch(Args<T> a, cudaStream_t stream) {
-  if (a.n_rows < 0 || a.samples < 1 || a.skip < 0 || a.depth < a.skip + 2 || a.xyz_depth < 0) {
-    return int(cudaErrorInvalidValue);
-  }
-  a.warps_m = pick_warps_m<T>(a.width, a.pe);
-  if (a.warps_m == 0) return int(cudaErrorInvalidValue);
-  if (a.n_rows == 0) return int(cudaSuccess);
-  const Layout L = make_layout<T>(a.width, a.pe, a.warps_m);
-  cudaError_t e = cudaFuncSetAttribute(field_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(L.bytes));
-  if (e != cudaSuccess) return int(e);
-  const int grid = (a.n_rows + L.rows - 1) / L.rows;
-  field_kernel<T><<<grid, L.warps_n * L.warps_m * 32, L.bytes, stream>>>(a);
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_typed(const void* x, const void* dirf, const void* w_pts, const void* b_pts,
-                 const void* w_stack, const void* b_stack, const void* w_view,
-                 const void* b_view, const void* w_out, const void* b_out, void* out,
-                 int n_rows, int samples, int pe, int width, int depth, int skip, int xyz_depth,
-                 void* stream) {
-  Args<T> a;
-  a.x = static_cast<const float*>(x);
-  a.dirf = static_cast<const float*>(dirf);
-  a.w_pts = static_cast<const T*>(w_pts);
-  a.b_pts = static_cast<const float*>(b_pts);
-  a.w_stack = static_cast<const T*>(w_stack);
-  a.b_stack = static_cast<const float*>(b_stack);
-  a.w_view = static_cast<const T*>(w_view);
-  a.b_view = static_cast<const float*>(b_view);
-  a.w_out = static_cast<const T*>(w_out);
-  a.b_out = static_cast<const float*>(b_out);
-  a.out = static_cast<float*>(out);
-  a.n_rows = n_rows;
-  a.samples = samples;
-  a.pe = pe;
-  a.width = width;
-  a.depth = depth;
-  a.skip = skip;
-  a.xyz_depth = xyz_depth;
-  a.warps_m = 0;
-  return launch(a, static_cast<cudaStream_t>(stream));
+// The wgmma design takes bf16 at the two widths it is built for, with an embedding that fits
+// one 64-deep weight tile (ops/field_kernel.py::uses_wgmma states the same rule).
+inline bool uses_wgmma(int dtype, int width, int pe) {
+  return dtype == 1 && (width == 256 || width == 1024) && pe >= 1 && pe <= wgmma_field::kTileK;
 }
 
 }  // namespace
@@ -494,28 +57,70 @@ int launch_typed(const void* x, const void* dirf, const void* w_pts, const void*
 // dtype of every weight matrix; points, view features, biases and out are float32).
 
 // Launches on `stream`, does not synchronise, and returns the launch's cudaError_t (0 on
-// success). Every pointer must be 16-byte aligned.
+// success). Every pointer must be 16-byte aligned. `tiles` (the weight stream of
+// ops/field_kernel.py::tile_weights) and `scratch` (f32, max_ctas * block rows * width) are
+// read by the wgmma design only, which launches at most max_ctas CTAs.
 extern "C" int field_apply(int dtype, const void* x, const void* dirf, const void* w_pts,
                            const void* b_pts, const void* w_stack, const void* b_stack,
                            const void* w_view, const void* b_view, const void* w_out,
-                           const void* b_out, void* out, int n_rows, int samples, int pe,
-                           int width, int depth, int skip, int xyz_depth, void* stream) {
+                           const void* b_out, const void* tiles, void* scratch, void* out,
+                           int n_rows, int samples, int pe, int width, int depth, int skip,
+                           int xyz_depth, int max_ctas, void* stream) {
+  if (uses_wgmma(dtype, width, pe)) {
+    if (n_rows < 0 || samples < 1 || skip < 0 || depth < skip + 2 || xyz_depth < 0) {
+      return int(cudaErrorInvalidValue);
+    }
+    if (n_rows == 0) return int(cudaSuccess);
+    if (tiles == nullptr || scratch == nullptr || max_ctas < 1) return int(cudaErrorInvalidValue);
+    wgmma_field::Args a;
+    a.x = static_cast<const float*>(x);
+    a.dirf = static_cast<const float*>(dirf);
+    a.tiles = static_cast<const wgmma_field::bf16*>(tiles);
+    a.b_pts = static_cast<const float*>(b_pts);
+    a.b_stack = static_cast<const float*>(b_stack);
+    a.b_view = static_cast<const float*>(b_view);
+    a.w_out = static_cast<const wgmma_field::bf16*>(w_out);
+    a.b_out = static_cast<const float*>(b_out);
+    a.out = static_cast<float*>(out);
+    a.scratch = static_cast<float*>(scratch);
+    a.n_rows = n_rows;
+    a.samples = samples;
+    a.pe = pe;
+    a.depth = depth;
+    a.skip = skip;
+    a.xyz_depth = xyz_depth;
+    a.n_blocks = 0;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return width == 256 ? wgmma_field::launch<256>(a, max_ctas, s)
+                        : wgmma_field::launch<1024>(a, max_ctas, s);
+  }
   if (dtype == 0) {
-    return launch_typed<float>(x, dirf, w_pts, b_pts, w_stack, b_stack, w_view, b_view, w_out,
-                               b_out, out, n_rows, samples, pe, width, depth, skip, xyz_depth,
-                               stream);
+    return mma_field::launch_typed<float>(x, dirf, w_pts, b_pts, w_stack, b_stack, w_view,
+                                          b_view, w_out, b_out, out, n_rows, samples, pe, width,
+                                          depth, skip, xyz_depth, stream);
   }
   if (dtype == 1) {
-    return launch_typed<bf16>(x, dirf, w_pts, b_pts, w_stack, b_stack, w_view, b_view, w_out,
-                              b_out, out, n_rows, samples, pe, width, depth, skip, xyz_depth,
-                              stream);
+    return mma_field::launch_typed<mma_field::bf16>(x, dirf, w_pts, b_pts, w_stack, b_stack,
+                                                    w_view, b_view, w_out, b_out, out, n_rows,
+                                                    samples, pe, width, depth, skip, xyz_depth,
+                                                    stream);
   }
   return int(cudaErrorInvalidValue);
 }
 
-// Point rows one CTA holds for this dtype, width and embedding size; 0 if not supported.
+// Point rows that share one read of the weights for this dtype, width and embedding size (a
+// CTA's rows: every CTA streams the weights once a row block); 0 if not supported.
 extern "C" int field_block_rows(int dtype, int width, int pe) {
+  if (uses_wgmma(dtype, width, pe)) {
+    return width == 256 ? wgmma_field::Geo<256>::kRows : wgmma_field::Geo<1024>::kRows;
+  }
+  using namespace mma_field;
   if (dtype == 0) return pick_warps_m<float>(width, pe) * Traits<float>::kWarpRows;
   if (dtype == 1) return pick_warps_m<bf16>(width, pe) * Traits<bf16>::kWarpRows;
   return 0;
+}
+
+// 1 if field_apply runs the wgmma design for this dtype, width and embedding size, else 0.
+extern "C" int field_uses_wgmma(int dtype, int width, int pe) {
+  return uses_wgmma(dtype, width, pe) ? 1 : 0;
 }

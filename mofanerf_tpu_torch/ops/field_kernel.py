@@ -24,6 +24,15 @@ Layer plan of `w_stack` (skip=4, xyz_depth=3):
   [8], [9]          sigma skip pair: xyz_code @ W8 + h @ W9 (+ folded bias)
   [10..10+D-7]      sigma post
   ...               the same again for the rgb trunk (folded texture code)
+
+Two designs of the kernel (csrc/field_kernel.cu picks one by dtype and width,
+by the rule `uses_wgmma` states here). The wgmma design reads its weights as
+a stream of tiles, each the exact shared-memory image of one stage of its
+ring: `[256 output columns, 64 k]` bf16, K-major, in the 128-byte swizzle
+wgmma reads. `tile_weights` makes that stream once a `pack_fused_params`
+(`stream_plan` says which slice of which matrix each tile holds,
+`untile_weights` is the inverse); `FusedParams.w_tiles` carries it beside the
+plain operands, whose layout is unchanged.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_WIDTH = 1024
 _K_ALIGN = 16        # the embedding's fan-in is zero-padded to the mma depth
 _REF_CHUNK = 65536   # rows the plain version upcasts to f32 at a time
+TILE_N, TILE_K = 256, 64          # a weight tile of the wgmma design: [256 out, 64 in]
+_WGMMA_ROWS = {256: 128, 1024: 64}   # point rows of a CTA of the wgmma design, by width
 
 
 class FusedParams(NamedTuple):
@@ -58,6 +69,9 @@ class FusedParams(NamedTuple):
     w_out: torch.Tensor     # [W + W/2, 4] compute dtype: alpha (rows :W -> col 3)
                             # and rgb (rows W: -> cols 0..2), the fused output head
     b_out: torch.Tensor     # [4] f32
+    w_tiles: torch.Tensor   # [tiles, 256, 64] compute dtype: w_pts, w_stack and w_view
+                            # once more as the wgmma design's stream (`tile_weights`);
+                            # no tiles where `uses_wgmma` is false
 
 
 def _plan_len(cfg: FieldConfig) -> int:
@@ -109,10 +123,126 @@ def pack_fused_params(params: Params, cond: Params, cfg: FieldConfig) -> FusedPa
     w_out[:W, 3:4] = s["alpha"]["w"].to(dt)
     w_out[W:, 0:3] = v["rgb"]["w"].to(dt)
     b_out = torch.cat([v["rgb"]["b"], s["alpha"]["b"]]).to(f32)
+    w_stack, w_view = torch.stack(ws).contiguous(), v["w_feat"].to(dt).contiguous()
     return FusedParams(
-        torch.stack(ws).contiguous(), torch.stack(bs).contiguous(), w_pts,
-        cond["xyz_b"].to(f32).contiguous(), v["w_feat"].to(dt).contiguous(),
-        v["b"].to(f32).contiguous(), w_out, b_out.contiguous())
+        w_stack, torch.stack(bs).contiguous(), w_pts,
+        cond["xyz_b"].to(f32).contiguous(), w_view,
+        v["b"].to(f32).contiguous(), w_out, b_out.contiguous(),
+        tile_weights(w_pts, w_stack, w_view, cfg))
+
+
+def uses_wgmma(cfg: FieldConfig) -> bool:
+    """Whether the CUDA entry point runs the wgmma design for `cfg`: bf16 at
+    the teacher's two widths, with an embedding that fits one 64-deep tile
+    (csrc/field_kernel.cu::uses_wgmma states the same rule)."""
+    return (cfg.compute_dtype == torch.bfloat16 and cfg.width in _WGMMA_ROWS
+            and cfg.pts_embed_dim <= TILE_K)
+
+
+def product_layers(cfg: FieldConfig) -> list:
+    """Indices into `w_stack` in the order the wgmma design multiplies by
+    them. A trunk starts with the first half of its skip pair (saved @ W,
+    taken while the running activation still is the saved one; the sum waits
+    in f32), then L0, the mid layers, the pair's second half, the post layers."""
+    order = list(range(cfg.xyz_depth))
+    for trunk in range(2):
+        base = cfg.xyz_depth + trunk * (cfg.depth + 1)
+        order += [base + cfg.skip + 1, *range(base, base + cfg.skip + 1), base + cfg.skip + 2,
+                  *range(base + cfg.skip + 3, base + cfg.depth + 1)]
+    return order
+
+
+def stream_plan(cfg: FieldConfig) -> list:
+    """What each tile of the wgmma design's stream holds, in stream order:
+    `(operand, layer, k0, n0)` for the `[k0:k0+64, n0:n0+256]` slice of
+    `w_pts` (rows zero-padded to 64), `w_stack[layer]` or `w_view` (columns
+    zero-padded to 256), stored transposed (`[256, 64]`) and swizzled.
+
+    Width 256: a layer is one column tile wide, and its tiles run k block by
+    k block. Width 1024: a CTA holds the accumulators of two column tiles at
+    a time, so a product runs in rounds over k: column tiles 0 and 1 in the
+    first, 2 and 3 in the second; its tiles run round, k block, tile of the
+    pair."""
+    W, W2 = cfg.width, cfg.width // 2
+    pair = 2 if W > TILE_N else 1
+
+    def product(operand, layer, k_dim, n_dim):
+        rounds = max(1, n_dim // (TILE_N * pair))
+        return [(operand, layer, k0, (r * pair + j) * TILE_N)
+                for r in range(rounds) for k0 in range(0, k_dim, TILE_K) for j in range(pair)]
+
+    plan = product("w_pts", None, TILE_K, W)
+    for layer in product_layers(cfg):
+        plan += product("w_stack", layer, W, W)
+    return plan + product("w_view", None, W, W2)
+
+
+def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
+    """[..., 256, 64] -> the same tiles with the 16-byte chunk c (8 elements
+    of k) of row n moved to chunk c ^ (n % 8): the 128-byte swizzle. Its own
+    inverse."""
+    rows = torch.arange(TILE_N, device=tiles.device)
+    chunk = torch.arange(TILE_K // 8, device=tiles.device)
+    src = chunk[None, :] ^ (rows[:, None] & 7)                     # [256, 8]
+    t = tiles.reshape(-1, TILE_N, TILE_K // 8, 8)
+    return t[:, rows[:, None], src].reshape(tiles.shape)
+
+
+def _to_tiles(w: torch.Tensor, pair: int) -> torch.Tensor:
+    """[P, K, N] (K a multiple of 64, N of 256 * pair) -> [P * tiles, 256, 64]
+    in the order round, k block, tile of the pair of `stream_plan`, transposed."""
+    P, K, N = w.shape
+    rounds = N // (TILE_N * pair)
+    t = w.reshape(P, K // TILE_K, TILE_K, rounds, pair, TILE_N)
+    return t.permute(0, 3, 1, 4, 5, 2).reshape(-1, TILE_N, TILE_K)
+
+
+def tile_weights(w_pts: torch.Tensor, w_stack: torch.Tensor, w_view: torch.Tensor,
+                 cfg: FieldConfig) -> torch.Tensor:
+    """The wgmma design's weight stream `[tiles, 256, 64]` for `cfg` (see
+    `stream_plan`); no tiles where `uses_wgmma(cfg)` is false. A copy of every
+    weight: made once a `pack_fused_params`, never once a packet."""
+    if not uses_wgmma(cfg):
+        return w_stack.new_zeros((0, TILE_N, TILE_K))
+    W, W2 = cfg.width, cfg.width // 2
+    pair = 2 if W > TILE_N else 1
+    pts = w_stack.new_zeros((1, TILE_K, W))
+    pts[0, :w_pts.shape[0]] = w_pts
+    view = w_stack.new_zeros((1, W, max(W2, TILE_N)))
+    view[0, :, :W2] = w_view
+    order = torch.tensor(product_layers(cfg), device=w_stack.device)
+    tiles = torch.cat([_to_tiles(pts, pair), _to_tiles(w_stack[order], pair),
+                       _to_tiles(view, min(pair, view.shape[2] // TILE_N))])
+    return _swizzle(tiles).contiguous()
+
+
+def untile_weights(w_tiles: torch.Tensor, cfg: FieldConfig):
+    """Inverse of `tile_weights`: (w_pts [64, W], w_stack [L, W, W], w_view
+    [W, W/2]) from the stream (the padding dropped, but for w_pts' rows)."""
+    W, W2 = cfg.width, cfg.width // 2
+    tiles = _swizzle(w_tiles)
+    w_pts = w_tiles.new_zeros((TILE_K, W))
+    w_stack = w_tiles.new_zeros((_plan_len(cfg), W, W))
+    w_view = w_tiles.new_zeros((W, max(W2, TILE_N)))
+    for tile, (operand, layer, k0, n0) in zip(tiles, stream_plan(cfg)):
+        dst = {"w_pts": w_pts, "w_view": w_view}.get(operand)
+        dst = w_stack[layer] if dst is None else dst
+        dst[k0:k0 + TILE_K, n0:n0 + TILE_N] = tile.t()
+    return w_pts, w_stack, w_view[:, :W2].contiguous()
+
+
+def wgmma_block_rows(cfg: FieldConfig) -> int:
+    """Point rows of one CTA of the wgmma design, which share one read of the
+    weight stream: what the running `[rows, W]` activation and a ring of 32 KB
+    tiles leave room for in 227 KB of shared memory."""
+    return _WGMMA_ROWS[cfg.width]
+
+
+def wgmma_scratch(cfg: FieldConfig, n_sms: int) -> tuple:
+    """(most CTAs the wgmma design launches on a card of `n_sms` SMs, f32
+    elements of its scratch): a CTA is persistent, one an SM, and parks the
+    f32 sums of a skip pair's first half for its `[rows, W]` block."""
+    return n_sms, n_sms * wgmma_block_rows(cfg) * cfg.width
 
 
 def _ref_rows(fused: FusedParams, x, dirf_rows, cfg: FieldConfig):
@@ -194,10 +324,11 @@ def _operand_shapes(cfg: FieldConfig, n_rows: int, n_rays: int) -> Dict[str, tup
     return {"pts_embed": (n_rows, cfg.pts_embed_dim), "dir_feat": (n_rays, W2),
             "w_stack": (L, W, W), "b_stack": (L, W), "w_pts": (_padded_pe(cfg), W),
             "b_pts": (W,), "w_view": (W, W2), "b_view": (W2,),
-            "w_out": (W + W2, 4), "b_out": (4,)}
+            "w_out": (W + W2, 4), "b_out": (4,),
+            "w_tiles": (len(stream_plan(cfg)) if uses_wgmma(cfg) else 0, TILE_N, TILE_K)}
 
 
-_COMPUTE_DTYPE_OPERANDS = ("w_stack", "w_pts", "w_view", "w_out")
+_COMPUTE_DTYPE_OPERANDS = ("w_stack", "w_pts", "w_view", "w_out", "w_tiles")
 
 
 def _check_operands(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
@@ -228,16 +359,19 @@ def _lib():
 
     lib = load("field_kernel")
     lib.field_apply.restype = ctypes.c_int
-    lib.field_apply.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
-                                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.field_block_rows.restype = ctypes.c_int
-    lib.field_block_rows.argtypes = [ctypes.c_int] * 3
+    lib.field_apply.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
+                                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    for fn in (lib.field_block_rows, lib.field_uses_wgmma):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3
     return lib
 
 
 def block_rows(cfg: FieldConfig) -> int:
-    """Point rows one CTA of the CUDA kernel holds for `cfg` (each CTA streams
-    the whole weight stack once, so this sets the kernel's weight traffic)."""
+    """Point rows that share one read of the weights in the CUDA kernel for
+    `cfg`: a CTA's rows (each CTA streams the whole weight stack once a row
+    block), which sets the kernel's weight traffic. Asked of the built
+    library; for the wgmma design `wgmma_block_rows` reckons the same here."""
     _check_config(cfg)
     rows = _lib().field_block_rows(_DTYPE_CODE[cfg.compute_dtype], cfg.width,
                                    cfg.pts_embed_dim)
@@ -253,15 +387,26 @@ def _field_cuda(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
     dev = pts_embed.device
     n_rows = pts_embed.shape[0]
     out = torch.empty((n_rows, 4), dtype=torch.float32, device=dev)
-    fn = _lib().field_apply
+    lib = _lib()
+    code = _DTYPE_CODE[cfg.compute_dtype]
+    if bool(lib.field_uses_wgmma(code, cfg.width, cfg.pts_embed_dim)) != uses_wgmma(cfg):
+        raise RuntimeError("the built library and ops/field_kernel.py disagree on the design "
+                           f"for width {cfg.width}, {cfg.compute_dtype}")
+    max_ctas, scratch = 0, None
+    if uses_wgmma(cfg):
+        n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        max_ctas, n_scratch = wgmma_scratch(cfg, n_sms)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(_DTYPE_CODE[cfg.compute_dtype], pts_embed.data_ptr(), dir_feat.data_ptr(),
-                 fused.w_pts.data_ptr(), fused.b_pts.data_ptr(), fused.w_stack.data_ptr(),
-                 fused.b_stack.data_ptr(), fused.w_view.data_ptr(), fused.b_view.data_ptr(),
-                 fused.w_out.data_ptr(), fused.b_out.data_ptr(), out.data_ptr(),
-                 n_rows, samples_per_ray, cfg.pts_embed_dim, cfg.width, cfg.depth,
-                 cfg.skip, cfg.xyz_depth, stream)
+        err = lib.field_apply(
+            code, pts_embed.data_ptr(), dir_feat.data_ptr(),
+            fused.w_pts.data_ptr(), fused.b_pts.data_ptr(), fused.w_stack.data_ptr(),
+            fused.b_stack.data_ptr(), fused.w_view.data_ptr(), fused.b_view.data_ptr(),
+            fused.w_out.data_ptr(), fused.b_out.data_ptr(), fused.w_tiles.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            n_rows, samples_per_ray, cfg.pts_embed_dim, cfg.width, cfg.depth,
+            cfg.skip, cfg.xyz_depth, max_ctas, stream)
     if err != 0:
         raise RuntimeError(f"field_apply kernel launch failed: cudaError {err}")
     if n_rows:

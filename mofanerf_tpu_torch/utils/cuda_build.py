@@ -2,14 +2,18 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into a shared
 library with a plain C interface, `build/<name>-<source hash>.so` beside the
-package. A library already built from the same source is reused; a changed
-source builds anew. Nothing here runs at import time.
+package. The hash covers the source and every file of `csrc/` it includes
+(`#include "..."`, followed through). A library already built from the same
+sources is reused; a changed source or header builds anew. The kernels use
+the CUDA runtime and inline PTX only: nothing links libcuda, no third-party
+header. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,10 +44,35 @@ def nvcc_path() -> str:
                        f"{CSRC}/*.cu (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """csrc/<name>.cu and every file of csrc/ it includes, directly or not, in
+    the order found. A quoted include that is not there raises."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        if not path.exists():
+            raise RuntimeError(f"{path} is included by a source of {name} but does not exist")
+        found.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
+def source_digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if not built yet) and return the library path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(name)
     lib = BUILD_DIR / f"{name}-{digest}.so"
     if lib.exists():
         return lib

@@ -3,7 +3,9 @@ Pallas kernel in interpret mode (bf16, weights x 0.4, atol 5e-3 as in
 tests/test_pallas_field.py: contracting weights keep bf16 rounding flips from
 growing through the layers), the f32 plain version against
 apply_field_folded (sum order only: 1e-5), the wrapper's dispatch and checks,
-and -- on a card only -- the CUDA kernel against its plain version."""
+what the wgmma design keeps in Python (its weight stream, the order of its
+products, its scratch and row-block reckoning), and -- on a card only -- the
+CUDA kernel against its plain version."""
 import dataclasses
 import importlib
 
@@ -183,6 +185,142 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fk.fused_field_apply(fused._replace(b_out=fused.b_out.to("meta")), pe, dirf, tcfg, 3)
 
 
+def _torch_fused(depth, width, dtype=torch.bfloat16, seed=0, scale=0.4):
+    """Packed operands of a seeded field made by the port alone."""
+    cfg = tfield.FieldConfig(depth=depth, width=width, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    params = bridge.map_tree(lambda w: w * scale, tfield.init_field_params(gen, cfg, device="cpu"))
+    codes = [torch.randn(n, generator=gen) * 0.3 for n in (50, 30, 256)]
+    return cfg, fk.pack_fused_params(params, tfield.fold_conditioning(params, *codes), cfg)
+
+
+@pytest.mark.parametrize("depth,width", [(8, 256), (10, 1024), (6, 256)])
+def test_weight_tiles_hold_the_planned_slices_and_round_trip(depth, width):
+    cfg, fused = _torch_fused(depth, width)
+    plan = fk.stream_plan(cfg)
+    assert fk.uses_wgmma(cfg) and fused.w_tiles.shape == (len(plan), 256, 64)
+    assert fused.w_tiles.dtype == torch.bfloat16 and fused.w_tiles.is_contiguous()
+    plain = fk._swizzle(fused.w_tiles)          # the swizzle is its own inverse
+    assert torch.equal(fk._swizzle(plain), fused.w_tiles)
+    operands = {"w_pts": fused.w_pts, "w_view": fused.w_view}
+    for i, (operand, layer, k0, n0) in enumerate(plan):
+        src = fused.w_stack[layer] if operand == "w_stack" else operands[operand]
+        want = torch.zeros((64, 256), dtype=torch.bfloat16)     # padding is zeros
+        part = src[k0:k0 + 64, n0:n0 + 256]
+        want[:part.shape[0], :part.shape[1]] = part
+        assert torch.equal(plain[i], want.t()), (i, operand, layer, k0, n0)
+        # the stage's image: 16-byte chunk c of row n lies at chunk c ^ (n % 8)
+        for n, c in ((0, 0), (13, 5), (255, 7)):
+            at = (c ^ (n % 8)) * 8
+            assert torch.equal(fused.w_tiles[i, n, at:at + 8], want[c * 8:c * 8 + 8, n])
+    w_pts, w_stack, w_view = fk.untile_weights(fused.w_tiles, cfg)
+    assert torch.equal(w_pts[:fused.w_pts.shape[0]], fused.w_pts) and (w_pts[63:] == 0).all()
+    assert torch.equal(w_stack, fused.w_stack) and torch.equal(w_view, fused.w_view)
+
+
+def test_no_weight_tiles_where_the_mma_design_runs():
+    for depth, width, dtype in ((8, 64, torch.bfloat16), (8, 512, torch.bfloat16),
+                                (8, 256, torch.float32)):
+        cfg, fused = _torch_fused(depth, width, dtype)
+        assert not fk.uses_wgmma(cfg) and fused.w_tiles.shape == (0, 256, 64)
+        assert fused.w_tiles.dtype == dtype
+    # an embedding deeper than one 64-deep tile stays with the mma design too
+    wide = tfield.FieldConfig(depth=8, width=256, multires=12, compute_dtype=torch.bfloat16)
+    assert wide.pts_embed_dim > 64 and not fk.uses_wgmma(wide)
+
+
+@pytest.mark.parametrize("depth,width", [(8, 256), (10, 1024)])
+def test_stream_order_follows_the_layer_plan(depth, width):
+    _, _, jfield, jpallas = _jax()
+    cfg = tfield.FieldConfig(depth=depth, width=width, compute_dtype=torch.bfloat16)
+    L = jpallas._plan_len(jfield.FieldConfig(depth=depth, width=width))
+    order = fk.product_layers(cfg)
+    assert sorted(order) == list(range(L)) and L == fk._plan_len(cfg)
+    # a trunk multiplies by its skip pair's first half first (the input still is the saved
+    # activation), then L0 and the mid layers, the pair's second half, the post layers
+    xd, skip = cfg.xyz_depth, cfg.skip
+    assert order[:xd] == list(range(xd))
+    for trunk in range(2):
+        base = xd + trunk * (depth + 1)
+        got = order[base:base + depth + 1]
+        assert got[0] == base + skip + 1 and got[1:skip + 2] == list(range(base, base + skip + 1))
+        assert got[skip + 2:] == list(range(base + skip + 2, base + depth + 1))
+    plan = fk.stream_plan(cfg)
+    pair, kb = (2, width // 64) if width > 256 else (1, width // 64)
+    per_layer = kb * (width // 256)
+    assert len(plan) == width // 256 + L * per_layer + kb * max(1, width // 512)
+    assert [t[0] for t in plan[:width // 256]] == ["w_pts"] * (width // 256)
+    assert all(t[0] == "w_view" for t in plan[-kb * max(1, width // 512):])
+    stack = plan[width // 256:width // 256 + L * per_layer]
+    assert [t[1] for t in stack[::per_layer]] == order
+    # within a product: round, k block, tile of the pair; round r holds column tiles 2 r + j
+    first = stack[:per_layer]
+    want = [(r * pair + j) * 256 for r in range(width // 256 // pair)
+            for _ in range(kb) for j in range(pair)]
+    assert [t[3] for t in first] == want
+    assert [t[2] for t in first[:pair * kb:pair]] == list(range(0, width, 64))
+    # every [64, 256] slice of every layer exactly once
+    assert len(set(stack)) == len(stack) == L * per_layer
+
+
+@pytest.mark.parametrize("depth,width,n_rays,spr", [(8, 256, 5, 7), (10, 1024, 3, 5)])
+def test_products_in_stream_order_give_the_plain_version(depth, width, n_rays, spr):
+    """The wgmma design's dataflow in plain PyTorch, from the tile stream alone: weights read
+    back tile by tile, a trunk's skip-pair first half taken before L0 and parked in f32.
+    Against the plain version: f32 sums in another order, contracting weights (atol 5e-3)."""
+    cfg, fused = _torch_fused(depth, width, seed=depth)
+    rng = np.random.default_rng(depth)
+    pe = T(rng.standard_normal((n_rays * spr, 63)).astype(np.float32))
+    dirf = T(rng.standard_normal((n_rays, width // 2)).astype(np.float32) * 0.1)
+    w_pts, w_stack, w_view = fk.untile_weights(fused.w_tiles, cfg)
+    f32, dt = torch.float32, torch.bfloat16
+
+    def mm(a, w):
+        return a.to(dt).to(f32) @ w.to(f32)
+
+    products = iter(fk.product_layers(cfg))
+    x = torch.zeros((pe.shape[0], 64))
+    x[:, :63] = pe
+    h = torch.relu(mm(x, w_pts) + fused.b_pts).to(dt)
+    for _ in range(cfg.xyz_depth):
+        li = next(products)
+        h = torch.relu(mm(h, w_stack[li]) + fused.b_stack[li]).to(dt)
+    feats = []
+    for _ in range(2):
+        parked = mm(h, w_stack[next(products)])
+        for _ in range(cfg.skip + 1):
+            li = next(products)
+            h = torch.relu(mm(h, w_stack[li]) + fused.b_stack[li]).to(dt)
+        li = next(products)
+        h = torch.relu(parked + mm(h, w_stack[li]) + fused.b_stack[li]).to(dt)
+        for _ in range(cfg.depth - cfg.skip - 2):
+            li = next(products)
+            h = torch.relu(mm(h, w_stack[li]) + fused.b_stack[li]).to(dt)
+        feats.append(h)
+    assert next(products, None) is None
+    ray = torch.arange(pe.shape[0]) // spr
+    view = torch.relu(mm(feats[1], w_view) + fused.b_view + dirf[ray]).to(dt)
+    got = mm(feats[0], fused.w_out[:width]) + mm(view, fused.w_out[width:]) + fused.b_out
+    want = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, spr), dim=-1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-3)
+    assert want.abs().max() > 0.05
+
+
+def test_scratch_and_row_block_reckoning():
+    coarse = tfield.FieldConfig(depth=8, width=256, compute_dtype=torch.bfloat16)
+    fine = tfield.FieldConfig(depth=10, width=1024, compute_dtype=torch.bfloat16)
+    # a persistent CTA an SM parks f32 sums for its [rows, W] block
+    for cfg, rows in ((coarse, 128), (fine, 64)):
+        assert fk.wgmma_scratch(cfg, 132) == (132, 132 * rows * cfg.width)
+        assert fk.wgmma_scratch(cfg, 7) == (7, 7 * rows * cfg.width)
+        assert fk.wgmma_block_rows(cfg) == rows
+        # h [rows, W] bf16 and a ring of 32 KB tiles (5 at W = 256, 3 at 1024) fit in 227 KB
+        # with the barriers, the raw sigma buffer and the slack to align to 1024 bytes
+        stages = 5 if cfg.width == 256 else 3
+        assert rows * cfg.width * 2 + stages * 256 * 64 * 2 + rows * 4 + 16 * stages + 1024 \
+            <= 232448
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,depth,width,n_rays,spr", [
     ("float32", 8, 256, 37, 64),      # the coarse field, ragged against its row block
@@ -192,6 +330,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     ("bfloat16", 6, 64, 300, 5),      # no post layers, many warp rows
     ("float32", 7, 192, 11, 9),       # a width that is not a power of two
     ("bfloat16", 8, 512, 3, 1),       # fewer rows than one block
+    ("bfloat16", 8, 256, 3, 1),       # the wgmma design: fewer rows than one block,
+    ("bfloat16", 10, 1024, 1, 50),
+    ("bfloat16", 8, 256, 133, 67),    # blocks that span rays, a ragged last block,
+    ("bfloat16", 10, 1024, 133, 67),
+    ("bfloat16", 6, 256, 300, 5),     # no post layers
+    ("bfloat16", 8, 256, 2100, 33),   # more blocks than the card has SMs
+    ("bfloat16", 10, 1024, 700, 33),
 ])
 def test_cuda_kernel_matches_plain_version(dtype, depth, width, n_rays, spr):
     """On the card: the hand-written kernel against its plain version. f32
@@ -211,6 +356,8 @@ def test_cuda_kernel_matches_plain_version(dtype, depth, width, n_rays, spr):
     fused = fk.pack_fused_params(params, tfield.fold_conditioning(params, *codes), cfg)
     pe = torch.randn((n_rays * spr, 63), generator=gen).to(dev)
     dirf = (torch.randn((n_rays, width // 2), generator=gen) * 0.1).to(dev)
+    if fk.uses_wgmma(cfg):
+        assert fk.block_rows(cfg) == fk.wgmma_block_rows(cfg)
     before = fk.launch_count
     with torch.no_grad():
         got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, spr), dim=-1)
