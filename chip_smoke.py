@@ -8,12 +8,16 @@ Phases, each failing loudly:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build every CUDA source of mofanerf_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc a source, started together, printing the build time and ptxas'
-     register / shared-memory report;
+     register / shared-memory report, and count HGMMA (wgmma) instructions in
+     each library's SASS;
   3. kernels, each against its plain PyTorch version on the card, timed with
      CUDA events beside its bound:
      - the serving kernel at the serving width (D=4, W=128, multires=8, S=32,
-       16384 rays, hit and miss rays, unnormalised directions), bf16 and f32,
-       with and without white background;
+       16384 rays, hit and miss rays, unnormalised directions): bf16 through
+       its wgmma design, f32 through its mma.sync design, with and without
+       white background, beside two bounds (the hit rays' work, every row's);
+       the items the wgmma design's kernel counts as skipped, held against
+       the items the hit mask leaves without a hit ray;
      - the field kernel at full width, both of the teacher's fields (coarse
        8x256 with 64 samples a ray, fine 10x1024 with 128: the two widths the
        wgmma design takes in bf16; f32 runs the mma.sync design), at ragged
@@ -25,7 +29,9 @@ Phases, each failing loudly:
        shapes through torch.matmul (`layer_matmul_ms`);
   4. serving path: a seeded bf16 student artifact through the run_render CLI
      (4 views at 512x512), then a 3-pose x 3-expression rig of a
-     code-conditioned student through render_path_serve;
+     code-conditioned student through render_path_serve; then the steady
+     512x512 frame, timed and once more under torch.profiler (the card's busy
+     share, the kernels and the host operations a frame);
   5. teacher path: a seeded full-width model, a seeded UV map through the
      texture encoder, then the run_render CLI's teacher route (2 views) and
      render_path with a conditioning a pose (2 poses, 2 expressions), at
@@ -150,18 +156,22 @@ def kernel_phase(failures, dev, n_rays=N_KERNEL):
     aabb = ((-2.0,) * 3, (2.0,) * 3)
     ro, rd = kernel_rays(n_rays, 0, dev)
     rows = {}
-    for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    for dt_name, dt, design in (("bfloat16", torch.bfloat16, "wgmma"),
+                                ("float32", torch.float32, "mma.sync")):
         cfg = StudentConfig(depth=D, width=W, multires=MR, compute_dtype=dt)
+        if sk.uses_wgmma(cfg, S) != (design == "wgmma"):
+            fail(failures, f"serving kernel {dt_name} would not run the {design} design")
         params = init_student_params(torch.Generator().manual_seed(0), cfg, device=dev)
         params["sigma"]["b"] = params["sigma"]["b"] + 1.5   # visible structure
-        ops = sk._operands(params, cfg, ro, rd, 8.0, 26.0, *aabb)
-        hit = ops["aux"][:, 2] > 0
+        pack = sk.pack_student(params, cfg)
+        aux, dirf = sk.ray_operands(pack, cfg, ro, rd, 8.0, 26.0, *aabb)
+        hit = aux[:, 2] > 0
         n_hit = int(hit.sum())
         errs = []
         for white in (False, True):
-            got = sk._serve_cuda(ops, cfg, ro, rd, S, white)
+            got = sk._serve_cuda(pack, aux, dirf, cfg, ro, rd, S, white)
             torch.cuda.synchronize()
-            ref = sk._serve_ref(ops, cfg, ro, rd, S, white)
+            ref = sk._serve_ref(pack, aux, dirf, cfg, ro, rd, S, white)
             tol = TOL[dt_name]
             err_px = float((got[:, :4] - ref[:, :4]).abs().max())
             errs.append(err_px)
@@ -174,27 +184,46 @@ def kernel_phase(failures, dev, n_rays=N_KERNEL):
             miss_exact = bool((got[miss, 0:3] == bg).all() and (got[miss, 3] == 0).all()
                               and (got[miss, 5] == 1e10).all())
             finite = bool(torch.isfinite(got).all())
-            print(f"kernel {dt_name} white_bkgd={white}: max|kernel-plain| rgb/acc "
+            print(f"kernel {dt_name} ({design}) white_bkgd={white}: max|kernel-plain| rgb/acc "
                   f"{err_px:.3e} (tol {tol}), depth "
                   f"{float((got[:, 4] - ref[:, 4]).abs().max()):.3e}, "
                   f"elements outside tol {bad}, misses exact background {miss_exact}, "
                   f"finite {finite}, hits {n_hit}/{n_rays}", flush=True)
             if bad or not miss_exact or not finite:
                 fail(failures, f"kernel {dt_name} white_bkgd={white} disagrees with its plain version")
-        ms = cuda_ms(lambda: sk._serve_cuda(ops, cfg, ro, rd, S, False), iters=50)
-        plain_ms = cuda_ms(lambda: sk._serve_ref(ops, cfg, ro, rd, S, False), iters=5, warmup=1)
+        ms = cuda_ms(lambda: sk._serve_cuda(pack, aux, dirf, cfg, ro, rd, S, False), iters=50)
+        plain_ms = cuda_ms(lambda: sk._serve_ref(pack, aux, dirf, cfg, ro, rd, S, False),
+                           iters=5, warmup=1)
         esize = 2 if dt == torch.bfloat16 else 4
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         ops_count = n_hit * S * flops_per_sample(D, W, MR)
-        t_ops = ops_count / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3
+        t_ops = ops_count / peak * 1e3
+        # every row computed, misses included: what a design that skips nothing needs
+        t_all = n_rays * S * flops_per_sample(D, W, MR) / peak * 1e3
         t_bytes = kernel_bytes(n_rays, D, W, MR, esize) / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         rows[dt_name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                         "max_abs_err": max(errs)}
-        print(f"kernel {dt_name}: {ms:.4f} ms a launch of {n_rays} rays x {S} samples "
+                         "max_abs_err": max(errs), "design": design}
+        print(f"kernel {dt_name} ({design}): {ms:.4f} ms a launch of {n_rays} rays x {S} samples "
               f"(plain PyTorch {plain_ms:.3f} ms); bound {bound:.4f} ms "
               f"({rows[dt_name]['bound_by']}: {ops_count / 1e9:.2f} GFLOP over hit rays), "
-              f"{bound / ms:.1%} of bound", flush=True)
+              f"{bound / ms:.1%} of bound; every row's work {t_all:.4f} ms "
+              f"({t_all / ms:.1%})", flush=True)
+        if design == "wgmma":
+            # the items (64 sample rows, 64 / S whole rays) the kernel itself counts as
+            # skipped in one launch, against those the hit mask says have no hit ray
+            sk.items_skipped(dev)
+            sk._serve_cuda(pack, aux, dirf, cfg, ro, rd, S, False)
+            skipped = sk.items_skipped(dev)
+            n_items = -(-n_rays * S // 64)
+            want = sk.items_all_missing(hit, S)
+            print(f"kernel {dt_name} ({design}): items skipped {skipped} of {n_items} "
+                  f"({skipped / n_items:.1%}), counted by the kernel; the hit mask has "
+                  f"{want} items with no hit ray", flush=True)
+            if skipped != want:
+                fail(failures, f"the serving kernel skipped {skipped} items, the hit mask "
+                               f"has {want} with no hit ray")
     return rows
 
 
@@ -483,7 +512,42 @@ def path_phase(failures, card, dev, H=512):
           f"(bf16 4x128 student, 32 samples, packets of {pkt}) on {card}", flush=True)
     print(f"path: rig {t_rig / (len(rig_exps) * len(rig_poses)):.5f} s per 512x512 frame "
           f"(hit budget {frac}) on {card}", flush=True)
+    profile_frames(frame, reps, card)
     return launches
+
+
+def profile_frames(frame, reps, card):
+    """Where a serving frame's time goes: torch.profiler over `reps` frames, the
+    card's busy share (kernel time over wall time) and the kernels that fill it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            frame()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+              for e in kernels}
+    busy = sum(dev_us.values()) / 1e6
+    if busy <= 0:
+        print("path: profiled frame: no device time in the trace (busy share not measured)",
+              flush=True)
+        return
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+    print(f"path: profiled {reps} frames: {wall / reps * 1e3:.3f} ms a frame under the profiler, "
+          f"card busy {busy / reps * 1e3:.3f} ms a frame ({busy / wall:.1%}, idle "
+          f"{1 - busy / wall:.1%}) in {len(dev_us)} kernels; top: "
+          + "; ".join(f"{k[:48]} {v / reps / 1e3:.3f} ms" for k, v in top) + f" on {card}",
+          flush=True)
+    host = sorted((e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    print("path: profiled frames, host time by operation (self, ms a frame, calls a frame): "
+          + "; ".join(f"{e.key} {e.self_cpu_time_total / reps / 1e3:.3f} "
+                      f"({e.count / reps:.0f})" for e in host), flush=True)
 
 
 def shape_density(field_params, cfg, cond, pe_probe):
@@ -657,18 +721,20 @@ def main(argv) -> int:
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     failures: list = []
-    # the field kernel's bf16 products at its two wgmma widths must be wgmma in the machine
-    # code too: count HGMMA in the library's SASS where the toolkit's cuobjdump is at hand
+    # each kernel's bf16 products on its wgmma design (the field kernel at its two wgmma
+    # widths, the serving kernel at the serving width) must be wgmma in the machine code too:
+    # count HGMMA in each library's SASS where the toolkit's cuobjdump is at hand
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
-    if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass", str(libs["field_kernel"])],
+    for name in ("field_kernel", "serve_kernel"):
+        if not os.path.exists(cuobjdump):
+            print(f"sass {name}: not checked (no cuobjdump beside nvcc)", flush=True)
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
                               capture_output=True, text=True).stdout
         n_hgmma = sass.count("HGMMA")
-        print(f"sass field_kernel: {n_hgmma} HGMMA instructions", flush=True)
+        print(f"sass {name}: {n_hgmma} HGMMA instructions", flush=True)
         if n_hgmma == 0:
-            fail(failures, "the field kernel's library holds no HGMMA instruction")
-    else:
-        print("sass field_kernel: not checked (no cuobjdump beside nvcc)", flush=True)
+            fail(failures, f"the {name} library holds no HGMMA instruction")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     rows = kernel_phase(failures, dev)
@@ -721,6 +787,7 @@ def main(argv) -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "design": main_row["design"],
         "f32": rows["float32"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,6 +34,7 @@ import torch
 
 from mofanerf_tpu_torch.config import load_config
 from mofanerf_tpu_torch.ops.rays import pose_spherical
+from mofanerf_tpu_torch.ops.serve_kernel import pack_student
 from mofanerf_tpu_torch.render.renderer import (exp_code_for, init_model_params,
                                                 prepare_conditioning, render_path)
 from mofanerf_tpu_torch.render.serve import render_frame_serve
@@ -194,9 +195,10 @@ def main(argv=None) -> np.ndarray:
     pkt = min(16384, max(256, (H * W) // 4 // 256 * 256))
     frames = []
     t_start = time.perf_counter()
+    pack = pack_student(params, scfg)   # the kernel's weights, cast and tiled once for every view
     for pose in poses:
         rgb = render_frame_serve(
-            params, scfg, None, H, W, K, pose[:3],
+            pack, scfg, None, H, W, K, pose[:3],
             near=near, far=far, n_samples=args.n_samples, packet_size=pkt,
             aabb_min=aabb_min, aabb_max=aabb_max, white_bkgd=args.white_bkgd,
             hit_fraction=1.0,

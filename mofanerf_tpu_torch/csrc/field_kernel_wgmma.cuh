@@ -49,8 +49,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper_ptx.cuh"
+
 namespace wgmma_field {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kTileN = 256;                        // output columns of a weight tile (wgmma n)
@@ -58,7 +61,6 @@ constexpr int kTileK = 64;                         // depth of a weight tile: on
 constexpr int kTileBytes = kTileN * kTileK * 2;    // 32 KB
 constexpr int kConsumerThreads = 256;              // two warpgroups
 constexpr int kThreads = 384;                      // and the producer's
-constexpr long long kWaitCycles = 20000000000LL;   // a wait this long (~10 s) is a lost arrival
 
 struct Args {
   const float* x;        // [N, pe] embedded points
@@ -100,101 +102,6 @@ __host__ __device__ inline int tiles_per_block(int depth, int xyz_depth) {
   using G = Geo<W>;
   return G::kNBlocks + (xyz_depth + 2 * (depth + 1)) * G::kKBlocks * G::kNBlocks +
          G::kKBlocks * G::kViewNBlocks;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of the given parity to complete. A lost arrival traps (the launch then
-// reports an error) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > kWaitCycles) __trap();
-  }
-}
-
-// ---- bulk copy global -> shared, completing on an mbarrier (the CTA's own shared memory,
-// which the instruction addresses as a cluster of one)
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :
-      : "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_mbarrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Generic-proxy stores to shared memory become visible to the async proxy (wgmma's reads).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// ---- wgmma
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Ties the accumulators to this point of the program, so that no read of them is scheduled
-// before the wait that completes the products.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128 bytes (64 bf16 of K),
-// groups of 8 rows 1024 bytes apart (the stride offset); the leading offset is unused in
-// this layout. `addr` is the tile's shared-memory address plus 32 bytes a k16 step.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
 // d (+)= a[64, 16] @ b[256, 16]^T; thread t of the warpgroup holds, for j = 0..31, rows

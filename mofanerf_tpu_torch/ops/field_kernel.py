@@ -178,13 +178,14 @@ def stream_plan(cfg: FieldConfig) -> list:
 
 
 def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
-    """[..., 256, 64] -> the same tiles with the 16-byte chunk c (8 elements
-    of k) of row n moved to chunk c ^ (n % 8): the 128-byte swizzle. Its own
-    inverse."""
-    rows = torch.arange(TILE_N, device=tiles.device)
+    """[..., n, 64] (n a multiple of 8) -> the same rows with the 16-byte
+    chunk c (8 elements of k) of row r moved to chunk c ^ (r % 8): the
+    128-byte swizzle. Its own inverse."""
+    n = tiles.shape[-2]
+    rows = torch.arange(n, device=tiles.device)
     chunk = torch.arange(TILE_K // 8, device=tiles.device)
-    src = chunk[None, :] ^ (rows[:, None] & 7)                     # [256, 8]
-    t = tiles.reshape(-1, TILE_N, TILE_K // 8, 8)
+    src = chunk[None, :] ^ (rows[:, None] & 7)                     # [n, 8]
+    t = tiles.reshape(-1, n, TILE_K // 8, 8)
     return t[:, rows[:, None], src].reshape(tiles.shape)
 
 

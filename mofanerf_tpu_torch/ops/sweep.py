@@ -83,12 +83,17 @@ def sweep_rays(
     hit_fraction: float | None = 1.0,
     white_bkgd: bool = False,
     packet_multiple: int = 1,
+    prepare: Callable | None = None,
 ) -> Dict[str, torch.Tensor]:
     """Sweep `ray_fn` over a flat ray stream in fixed-size packets with
     optional slab compaction. Returns flat [N, ...] maps.
 
     packet_multiple: round the packet size UP to this granularity (padding
-    rays, all ones, cover the remainder)."""
+    rays, all ones, cover the remainder).
+    prepare: (rays_o, rays_d) -> per-ray tensors [n, ...], made once over
+    every packet's rays (padding included) and handed to `ray_fn` as
+    further arguments, a packet's rows each: per-ray work done in a few
+    large operations rather than a few small ones a packet."""
     n = ro_flat.shape[0]
     p = min(packet_size, n)
     p = -(-p // packet_multiple) * packet_multiple
@@ -101,7 +106,9 @@ def sweep_rays(
     ro = torch.cat([ro_flat, pad]).reshape(-1, p, 3)
     rd = torch.cat([rd_flat, pad]).reshape(-1, p, 3)
 
-    outs = [ray_fn(ro[i], rd[i]) for i in range(ro.shape[0])]
+    extras = () if prepare is None else tuple(
+        t.reshape((-1, p) + t.shape[1:]) for t in prepare(ro.reshape(-1, 3), rd.reshape(-1, 3)))
+    outs = [ray_fn(ro[i], rd[i], *(t[i] for t in extras)) for i in range(ro.shape[0])]
     maps = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     return _scatter_background(maps, sel, n, n_eval, white_bkgd)
 

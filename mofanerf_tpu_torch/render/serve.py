@@ -2,10 +2,13 @@
 
 A per-avatar student renders with dense samples packed inside each ray's
 analytic AABB interval. With `fused=True` (the default here) every packet
-goes through `render_rays_bounded_fused`, which launches the CUDA kernel on
-the card and runs its plain PyTorch version on the CPU; the tensors' device
-decides, with no flag. `fused=False` runs `render_rays_bounded`, the plain
-path that also serves softplus density and skip students.
+goes through the fused serving kernel (`render_packet_fused`), which launches
+on the card and runs its plain PyTorch version on the CPU; the tensors' device
+decides, with no flag. The kernel's weight operands are cast and tiled once
+a frame or path (`pack_student`) and shared by its packets, and the rays'
+operands (`ray_operands`) are made once over all of its packets. `fused=False`
+runs `render_rays_bounded`, the plain path that also serves softplus density
+and skip students.
 """
 from __future__ import annotations
 
@@ -23,7 +26,13 @@ from mofanerf_tpu_torch.ops.bounds import (
 from mofanerf_tpu_torch.ops.composite import composite
 from mofanerf_tpu_torch.ops.embed import fourier_embed
 from mofanerf_tpu_torch.ops.rays import get_rays
-from mofanerf_tpu_torch.ops.serve_kernel import _BLOCK_R, render_rays_bounded_fused
+from mofanerf_tpu_torch.ops.serve_kernel import (
+    _BLOCK_R,
+    StudentPack,
+    pack_student,
+    ray_operands,
+    render_packet_fused,
+)
 from mofanerf_tpu_torch.ops.sweep import sweep_frame, sweep_rays
 
 Params = Dict[str, Any]
@@ -71,8 +80,10 @@ def render_rays_bounded(
 
 
 def _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation):
-    """(params, cond, aabb_lo, aabb_hi, o, d) -> maps: the one per-packet
-    program that the frame and path renderers share."""
+    """(params, cond, aabb_lo, aabb_hi, o, d, *operands) -> maps: the one
+    per-packet program that the frame and path renderers share. Fused, params
+    is the student's `pack_student` and the operands are the packet's
+    `(aux, dirf)` (`ray_operands`); see `_packed`."""
     if fused:
         if sigma_activation != "relu":
             raise ValueError(
@@ -80,11 +91,10 @@ def _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation):
                 f"for sigma_activation={sigma_activation!r}"
             )
 
-        def packet(params, cond, lo, hi, o, d):
+        def packet(pack, cond, lo, hi, o, d, aux, dirf):
             if cond is not None:
                 raise ValueError("the fused path takes folded params (cond=None)")
-            return render_rays_bounded_fused(params, cfg, o, d, near, far, n_samples,
-                                             lo, hi, white_bkgd)
+            return render_packet_fused(pack, cfg, o, d, aux, dirf, n_samples, white_bkgd)
     else:
         def packet(params, cond, lo, hi, o, d):
             return render_rays_bounded(params, cfg, cond, o, d, near, far, n_samples,
@@ -97,8 +107,29 @@ def _fused_block_multiple(fused: bool) -> int:
     return _BLOCK_R if fused else 1
 
 
-def _params_device(params: Params) -> torch.device:
-    return params["input"]["w"].device
+def _params_device(params) -> torch.device:
+    return params.w0.device if isinstance(params, StudentPack) else params["input"]["w"].device
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    """A small host array (box, K, pose) as f32 on `dev`. To the card it goes
+    from page-locked memory without blocking: a plain copy from pageable
+    memory waits for the card's queued work, which would keep a frame's host
+    set-up from overlapping the previous frame's kernels."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _packed(params: Params, cfg, near, far, lo, hi, fused: bool):
+    """What every packet reads, made once a frame or path: (the fused kernel's
+    weight operands, a `prepare` for the sweep that makes the rays' operands
+    over all packets at once); the params and no `prepare` when not fused."""
+    if not fused:
+        return params, None
+    pack = params if isinstance(params, StudentPack) else pack_student(params, cfg)
+    return pack, lambda o, d: ray_operands(pack, cfg, o, d, near, far, lo, hi)
 
 
 def render_frame_serve(
@@ -126,21 +157,22 @@ def render_frame_serve(
 
     For a code-conditioned student (cfg.cond_dim > 0), pass the code as
     `cond`; it folds into biases here so every packet runs as an
-    unconditioned student's."""
+    unconditioned student's. `params` may also be the `pack_student` of
+    folded params (cond None), so that a server packs an avatar once for
+    all its frames."""
     if isinstance(cfg, StudentConfig) and cond is not None:
         params, cond = fold_student_code(params, cond), None
     pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
     dev = _params_device(params)
-    lo = torch.as_tensor(aabb_min, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(aabb_max, dtype=torch.float32, device=dev)
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    lo, hi = _to_device(aabb_min, dev), _to_device(aabb_max, dev)
+    K, c2w = _to_device(K, dev), _to_device(c2w, dev)
 
+    packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
     return sweep_frame(
-        lambda o, d: pf(params, cond, lo, hi, o, d), H, W, K, c2w, packet_size,
+        lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), H, W, K, c2w, packet_size,
         aabb_min=lo, aabb_max=hi, near=near, far=far,
         hit_fraction=hit_fraction, white_bkgd=white_bkgd,
-        packet_multiple=_fused_block_multiple(fused),
+        packet_multiple=_fused_block_multiple(fused), prepare=prepare,
     )
 
 
@@ -174,10 +206,8 @@ def render_path_serve(
     if isinstance(cfg, StudentConfig) and cond is not None:
         params, cond = fold_student_code(params, cond), None
     dev = _params_device(params)
-    lo = torch.as_tensor(aabb_min, dtype=torch.float32, device=dev)
-    hi = torch.as_tensor(aabb_max, dtype=torch.float32, device=dev)
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    lo, hi = _to_device(aabb_min, dev), _to_device(aabb_max, dev)
+    K, poses = _to_device(K, dev), _to_device(poses, dev)
 
     F = poses.shape[0]
     ro, rd = [], []
@@ -189,10 +219,11 @@ def render_path_serve(
     rd = torch.cat(rd)
 
     pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
+    packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
     out = sweep_rays(
-        lambda o, d: pf(params, cond, lo, hi, o, d), ro, rd, packet_size,
+        lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), ro, rd, packet_size,
         aabb_min=lo, aabb_max=hi, near=near, far=far,
         hit_fraction=hit_fraction, white_bkgd=white_bkgd,
-        packet_multiple=_fused_block_multiple(fused),
+        packet_multiple=_fused_block_multiple(fused), prepare=prepare,
     )
     return {k: v.reshape((F, H, W) + v.shape[1:]) for k, v in out.items()}
