@@ -36,8 +36,16 @@ Phases, each failing loudly:
      texture encoder, then the run_render CLI's teacher route (2 views) and
      render_path with a conditioning a pose (2 poses, 2 expressions), at
      512x512 with 64 + 64 samples.
-  Both path phases check shapes, ranges, that the kernel's launch count is
-  the expected one, and that a small frame agrees with the CPU render.
+  6. training path: a 512x512 FaceScape-shaped fixture written by the port
+     (JPEG UV maps decoded by the port), the run_train CLI at the full width of
+     configs/exp_mofanerf.txt with a checkpoint mid-run, a resumed run, and
+     run_render from the last checkpoint (its held-out image, orbit and CLI
+     views go through the field kernel); one small f32 step on the card
+     against the CPU; the full-width step timed (median after two warm-ups,
+     synchronised around each step), its peak memory and operations bound, and
+     three steps under torch.profiler (busy share, the texture encoder's share).
+  The path phases check shapes, ranges, that the kernel's launch count is
+  the expected one, and that a small frame or step agrees with the CPU.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without it.
 """
@@ -73,6 +81,12 @@ FIELD_TOL = {"bfloat16": (6e-2, 6e-3), "float32": (1e-4, 1e-5)}
 # bf16 is also held sharply at the packet shape, with contracting weights: the
 # scale and the atol of the TPU kernel's own test
 CONTRACT, CONTRACT_ATOL = 0.4, 5e-3
+# the training phase: steps of the first run (a checkpoint at half of them) and of
+# the resumed one, frame side, the orbit's downsampling, steps timed and profiled
+TRAIN_STEPS = (8, 16)
+TRAIN_SIDE = 512
+TRAIN_ORBIT_FACTOR = 8
+TIMED_STEPS, PROFILED_STEPS = 8, 3
 # (rays, samples a ray) of the field kernel's small ragged checks: fewer rows than one row
 # block; fewer blocks than SMs (idle CTAs in a persistent grid), 67 samples dividing no block
 RAGGED = ((1, 50), (61, 67))
@@ -691,6 +705,317 @@ def teacher_path_phase(failures, card, dev, field_rows, H=TEACHER_SIDE):
     return launches, sec
 
 
+def encoder_flops(spec):
+    """Forward operations of the texture encoder on one UV map: seven 4x4
+    stride-2 convolutions, the FC to 512, `mu`, three decoding layers."""
+    from mofanerf_tpu_torch.models.tex_encoder import CONV_WIDTHS
+
+    side, cin, ops = spec.uv_size, 3, 0
+    for cout in CONV_WIDTHS:
+        side = (side + 2 - 4) // 2 + 1
+        ops += 2 * side * side * cout * cin * 16
+        cin = cout
+    flat = side * side * cin
+    return ops + 2 * (flat * 512 + 512 * spec.tex_dim + 3 * spec.tex_dim ** 2)
+
+
+def train_phase(failures, card, dev):
+    """Training at full width through the port's entry points: a 512^2
+    FaceScape-shaped fixture (JPEG UV maps read by the port's decoder), the
+    run_train CLI on configs/exp_mofanerf.txt with a checkpoint mid-run, a
+    resumed run, run_render from the last checkpoint; then one small f32 step
+    on the card against the CPU, and the full-width step timed and profiled."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.cli import run_render, run_train
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.data.facescape import (load_facescape_data, load_shape_codes,
+                                                   make_synthetic_dataset, read_image,
+                                                   valid_persons)
+    from mofanerf_tpu_torch.data.landmarks import TrainRaySampler
+    from mofanerf_tpu_torch.models.field import FieldConfig
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, RenderConfig, encode_texture,
+                                                    exp_code_for, prepare_conditioning)
+    from mofanerf_tpu_torch.train import loop, state as st
+    from mofanerf_tpu_torch.train.checkpoint import save_checkpoint
+    from mofanerf_tpu_torch.utils import image_io
+    from mofanerf_tpu_torch.utils.tree import flatten_with_keystr, tree_leaves
+
+    config = os.path.join(REPO, "configs", "exp_mofanerf.txt")
+    n_first, n_total = TRAIN_STEPS
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        make_synthetic_dataset(data, n_ids=2, n_train=3, n_test=2, hw=TRAIN_SIDE, seed=0)
+        print(f"train: fixture of 2 identities, {TRAIN_SIDE}x{TRAIN_SIDE} PNG frames and JPEG UV "
+              f"maps written in {time.perf_counter() - t0:.2f} s", flush=True)
+        # the host's JPEG decode of one UV map: the fixture's (uniform noise, the most
+        # coefficients a block) and a smooth one (nearer a face texture)
+        uv_path = os.path.join(data, "uv", "0", "1_neutral.jpg")
+        y, x = np.mgrid[:TRAIN_SIDE, :TRAIN_SIDE]
+        smooth = np.clip(np.stack([128 + 100 * np.sin(x / 37.0 + y / 53.0),
+                                   128 + 90 * np.cos(x / 29.0 - y / 61.0),
+                                   (x + y) / 4.0], -1), 0, 255).astype(np.uint8)
+        smooth_path = os.path.join(tmp, "smooth.jpg")
+        image_io.write_jpeg(smooth_path, smooth)
+        decode_s = {}
+        for name, path in (("noise", uv_path), ("smooth", smooth_path)):
+            t0 = time.perf_counter()
+            image_io.imread(path)
+            decode_s[name] = time.perf_counter() - t0
+        scale = (4096 / TRAIN_SIDE) ** 2
+        print(f"train: JPEG decode of one {TRAIN_SIDE}^2 UV map on the host (pure-Python Huffman "
+              f"stage): noise {decode_s['noise'] * 1e3:.1f} ms, smooth "
+              f"{decode_s['smooth'] * 1e3:.1f} ms; scaled by pixels to a 4096^2 map "
+              f"x{scale:.0f}: {decode_s['noise'] * scale:.1f} s and "
+              f"{decode_s['smooth'] * scale:.1f} s", flush=True)
+
+        logs = os.path.join(tmp, "logs")
+        flags = ["--config", config, "--i_grid", "0", "--expname", "smoke", "--basedir", logs,
+                 "--datadir", data, "--uvdir", os.path.join(data, "uv"),
+                 "--shape_codes_path", os.path.join(data, "factors_id.npy"),
+                 "--landmarks_path", os.path.join(data, "landmarks.npy"), "--person_num", "2",
+                 "--i_print", "1", "--i_weights", str(n_first // 2), "--i_testset", str(n_first),
+                 "--i_video", str(n_total), "--render_factor", str(TRAIN_ORBIT_FACTOR),
+                 "--device", str(dev)]
+        cfg = load_config(flags)
+        spec = cfg.model_spec()
+        H = TRAIN_SIDE
+        frame_packets = lambda n: -(-n // min(spec.render.packet_size, n))
+        expected = 2 * (n_total // n_first * frame_packets((H // 2) ** 2)    # held-out images
+                        + 40 * frame_packets((H // TRAIN_ORBIT_FACTOR) ** 2)   # the orbit
+                        + 2 * frame_packets((512 // 2) ** 2))              # run_render, 2 views
+        # the starting point: a seeded model whose alpha heads are rescaled to give both
+        # fields structure over the first frame's conditioning (a seeded ReLU field is
+        # mostly empty or fog, and an empty field gets no gradient), saved as step 0
+        init = st.create_train_state(torch.Generator().manual_seed(0), spec, cfg.lrate,
+                                     cfg.lrate_decay, device=dev)
+        uv = torch.from_numpy(read_image(uv_path, is_uvmap=True, uv_size=spec.uv_size)).to(dev)
+        with torch.no_grad():
+            cond = prepare_conditioning(
+                init.params, spec, torch.from_numpy(load_shape_codes(
+                    os.path.join(data, "factors_id.npy"))[0]).to(dev),
+                exp_code_for(init.params, 0), encode_texture(init.params, spec, uv))
+        probe_o, probe_d = kernel_rays(2048, 11, dev)
+        probe = probe_o[:, None, :] + probe_d[:, None, :] * torch.linspace(
+            8.0, 26.0, 16, device=dev)[:, None]
+        for name in ("coarse", "fine"):
+            fcfg = getattr(spec, name)
+            shape_density(init.params[name], fcfg, getattr(cond, name),
+                          fourier_embed(probe.reshape(-1, 3), fcfg.multires))
+        save_checkpoint(os.path.join(logs, "smoke", "checkpoints"), init, 0)
+
+        # ---- the main path: counts zeroed just before, read just after
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        run_train.main(flags + ["--n_iters", str(n_first)])
+        t_first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        final = run_train.main(flags + ["--n_iters", str(n_total)])
+        t_second = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        frames = run_render.main(["--out_dir", os.path.join(tmp, "orbit"), "--n_views", "2",
+                                  "--render_factor", "2", "--device", str(dev)]
+                                 + flags[:flags.index("--i_print")])
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        launches = fk.launch_count
+
+        exp = os.path.join(logs, "smoke")
+        log = open(os.path.join(exp, "train_log.txt")).read()
+        steps = [line.split() for line in log.splitlines() if line.startswith("Iteration")]
+        losses = [float(f[3]) for f in steps]
+        oks = [int(f[7]) for f in steps]
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+        tests = [f for n in range(n_first, n_total + 1, n_first)
+                 for f in os.listdir(os.path.join(exp, f"testset_{n:06d}"))]
+        orbit = os.listdir(os.path.join(exp, f"video_{n_total:06d}"))
+
+        # batches for the timed steps, assembled as the loop assembles them
+        ds = load_facescape_data(data, valid_persons(data), load_shape_codes(
+            os.path.join(data, "factors_id.npy")), uvdir=os.path.join(data, "uv"))
+        hh, ww, focal = ds.hwf
+        K = np.array([[focal, 0, 0.5 * ww], [0, focal, 0.5 * hh], [0, 0, 1]], np.float32)
+        sampler = TrainRaySampler(np.load(os.path.join(data, "landmarks.npy")) / 50.0, hh, ww,
+                                  lm_frac=cfg.lm_frac)
+        rng, uv_cache = np.random.default_rng(7), {}
+        t0 = time.perf_counter()
+        batches = [loop.make_batch(n_total + i, cfg, spec, ds, K, sampler, rng, uv_cache, dev)
+                   for i in range(2 + TIMED_STEPS + PROFILED_STEPS)]
+        t_batch = (time.perf_counter() - t0) / len(batches)
+    print(f"train: run_train {n_first} steps from the step-0 checkpoint in {t_first:.2f} s, "
+          f"resumed to {n_total} in {t_second:.2f} s (both with start-up, renders and saves); "
+          f"run_render 2 views at 256^2 from the checkpoint in {t_render:.2f} s; field kernel "
+          f"launches {launches} (expected {expected}: {n_total // n_first} held-out images, the "
+          f"40-view orbit, the 2 CLI views)", flush=True)
+    print(f"train: losses {[round(v, 5) for v in losses]}, step_ok {oks}; checkpoints {ckpts}; "
+          f"{len(tests)} held-out PNG, {len(orbit)} orbit PNGs", flush=True)
+    if launches != expected or launches == 0:
+        fail(failures, f"training path: field kernel launches {launches} != expected {expected}")
+    if len(losses) != n_total or not all(np.isfinite(losses)) or not all(o == 1 for o in oks):
+        fail(failures, f"training: {len(losses)} logged steps, losses {losses}, step_ok {oks}")
+    if not all(f"resumed from checkpoint at step {n}" in log for n in (0, n_first)):
+        fail(failures, "training: a run did not resume from the checkpoint before it")
+    want = {f"{n:06d}.pt" for n in (n_first // 2, n_first, n_total)}
+    if not want <= set(ckpts) or len(tests) != n_total // n_first or len(orbit) != 40:
+        fail(failures, f"training outputs: checkpoints {ckpts}, {len(tests)} test PNGs, "
+                       f"{len(orbit)} orbit PNGs")
+    if int(final.step) != n_total or int(final.opt_state.count) != n_total:
+        fail(failures, f"training: final step {int(final.step)}, Adam count "
+                       f"{int(final.opt_state.count)}, expected {n_total}")
+    unchanged = [part for part in ("coarse", "fine", "ism", "tex_encoder", "exp_codes")
+                 if all(torch.equal(a, b) for a, b in zip(tree_leaves(final.params[part]),
+                                                          tree_leaves(init.params[part])))]
+    if unchanged:
+        fail(failures, f"training left parameter groups unchanged: {unchanged}")
+    if (frames.shape != (2, 256, 256, 3) or not np.isfinite(frames).all()
+            or frames.min() < 0.0 or frames.max() > 1.0 + 1e-5):
+        fail(failures, f"run_render from the checkpoint: shape {frames.shape}, range "
+                       f"[{np.nanmin(frames)}, {np.nanmax(frames)}]")
+
+    # one f32 step on the card against the same step on the CPU, at a small size
+    fcfg = FieldConfig(depth=6, width=64, multires=4, multires_views=2)
+    small = MoFaNeRF(coarse=fcfg, fine=fcfg, render=RenderConfig(n_coarse=8, n_importance=8),
+                     uv_size=128)
+    rng = np.random.default_rng(5)
+    cpu_state = st.create_train_state(torch.Generator().manual_seed(2), small, device="cpu")
+    rd = rng.normal(0, 0.05, (16, 3)) + [0.0, 0.0, -1.0]
+    host = st.Batch(
+        rays_o=torch.tensor([[0.0, 0.0, 16.0]] * 16),
+        rays_d=torch.from_numpy(rd.astype(np.float32)),
+        target_rgb=torch.from_numpy(rng.uniform(0, 1, (16, 3)).astype(np.float32)),
+        shape_code=torch.from_numpy(rng.standard_normal(50).astype(np.float32)),
+        exp_type=torch.tensor(4),
+        uv_map=torch.from_numpy(rng.uniform(0, 1, (128, 128, 3)).astype(np.float32)))
+    draws = {"strat": torch.from_numpy(rng.uniform(0, 1, (16, 8)).astype(np.float32)),
+             "pdf": torch.from_numpy(rng.uniform(0, 1, (16, 8)).astype(np.float32))}
+    on_card = lambda tree: map_tree(lambda t: t.to(dev), tree)
+    tx = st.make_optimizer()
+    ref_state, ref_m = st.train_step(cpu_state, host, None, small, tx, draws=draws)
+    card_state = st.TrainState(on_card(cpu_state.params),
+                               st.AdamState(cpu_state.opt_state.count.to(dev),
+                                            on_card(cpu_state.opt_state.mu),
+                                            on_card(cpu_state.opt_state.nu)),
+                               cpu_state.step.to(dev))
+    got_state, got_m = st.train_step(card_state, st.Batch(*[t.to(dev) for t in host[:6]]), None,
+                                     small, tx, draws=on_card(draws))
+    loss_err = abs(float(got_m["loss"]) - float(ref_m["loss"])) / abs(float(ref_m["loss"]))
+    # mu = 0.1 g after one update: the gradients, held as tests/test_torch_train_state.py holds
+    # them (the coarse field at 1e-6 x max|g|, what the importance samples reach at 2e-5)
+    worst, bad = 0.0, []
+    for (name, a), b in zip(flatten_with_keystr(got_state.opt_state.mu),
+                            tree_leaves(ref_state.opt_state.mu)):
+        a = a.cpu()
+        scale = float(b.abs().max()) or 1.0
+        atol = (1e-6 if name.startswith("['coarse']") else 2e-5) * scale
+        excess = float(((a - b).abs() - 1e-4 * b.abs() - atol).max())
+        worst = max(worst, float((a - b).abs().max()) / scale)
+        if excess > 0:
+            bad.append(name)
+    print(f"train: small f32 step, card vs CPU: loss {float(got_m['loss']):.6f} vs "
+          f"{float(ref_m['loss']):.6f} (rel {loss_err:.2e}, tol 1e-4); gradients (Adam mu) max "
+          f"|diff| / max|g| {worst:.2e}, leaves outside tol {len(bad)}", flush=True)
+    if not loss_err <= 1e-4 or bad or not (bool(got_m["step_ok"]) and bool(ref_m["step_ok"])):
+        fail(failures, f"f32 train step differs between card and CPU: loss rel {loss_err}, {bad[:5]}")
+
+    print(f"train: host batch assembly (PNG read, sampling, rays, copies) "
+          f"{t_batch * 1e3:.1f} ms a batch, outside the timed steps", flush=True)
+    return launches, final, cfg, batches
+
+
+def train_step_timing(failures, card, dev, final, cfg, batches):
+    """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
+    samples, the fine pass on 128, N_rand 1024, UV 512, bf16) from the trained state:
+    ms a step (median after two warm-ups, synchronised around each step), peak memory,
+    the share of its operations bound, and under torch.profiler the card's busy share
+    and the texture encoder's share of the step's kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.train import loop, state as st
+    from mofanerf_tpu_torch.utils.tree import tree_leaves
+
+    spec = cfg.model_spec()
+    n_warm, n_timed, n_prof = 2, TIMED_STEPS, PROFILED_STEPS
+    tx = st.make_optimizer(cfg.lrate, cfg.lrate_decay)
+    state = final
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i, batch in enumerate(batches[:n_warm + n_timed]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = st.train_step(state, batch, loop.step_generator(0, i, dev), spec, tx)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not bool(metrics["step_ok"]):
+            fail(failures, f"timed train step {i} was skipped (loss {float(metrics['loss'])})")
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = float(np.median(times[n_warm:])) * 1e3
+
+    n_fine = spec.render.n_coarse + spec.render.n_importance   # the fine pass on the union
+    fwd_field = cfg.N_rand * (
+        spec.render.n_coarse * field_flops_per_point(spec.coarse, fk._plan_len(spec.coarse))
+        + n_fine * field_flops_per_point(spec.fine, fk._plan_len(spec.fine)))
+    fwd_enc = encoder_flops(spec)
+    bound_ms = (3 * fwd_field / PEAK_BF16 + 3 * fwd_enc / PEAK_F32) * 1e3
+    print(f"train step: {ms:.2f} ms (median of {n_timed} after {n_warm} warm-up; all "
+          f"{[round(t * 1e3, 2) for t in times]}), {1e3 / ms:.2f} steps/s, "
+          f"{cfg.N_rand * 1e3 / ms:.0f} trained rays/s; peak memory {peak / 2**30:.2f} GiB "
+          f"on {card}",
+          flush=True)
+    print(f"train step: operations bound {bound_ms:.2f} ms = 3 x (fields {fwd_field / 1e12:.3f} "
+          f"TFLOP at bf16 peak + texture encoder {fwd_enc / 1e9:.3f} GFLOP at f32 peak); the step "
+          f"is {bound_ms / ms:.1%} of its bound", flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches[n_warm + n_timed:]):
+            state, _ = st.train_step(state, batch, loop.step_generator(0, 100 + i, dev), spec, tx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+               for e in kernels) / 1e6
+    # the encoder's kernels: its convolutions and LeakyReLUs, forward and backward (its FC
+    # layers, a few MFLOP, are not separated from the fields' products)
+    enc_ops = ("aten::convolution", "aten::convolution_backward", "aten::leaky_relu",
+               "aten::leaky_relu_backward")
+    enc = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+              for e in events if e.key in enc_ops) / 1e6
+    if busy <= 0:
+        print("train step: profiled steps show no device time (busy share not measured)",
+              flush=True)
+        return dict(ms=ms, bound_ms=bound_ms, peak=peak, enc_share=None)
+    self_us = [(e.key, getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
+               for e in kernels]
+    top = sorted(self_us, key=lambda kv: -kv[1])[:8]
+    n_launch = sum(e.count for e in kernels) / n_prof
+    # kernel time by kind: GEMM kernels (cuBLAS products, cuDNN's implicit-GEMM
+    # convolutions), everything else
+    products = sum(v for k, v in self_us if any(w in k.lower() for w in
+                                                 ("gemm", "nvjet", "xmma", "cutlass", "sm90")))
+    print(f"train step: kernel time a step by kind: GEMM kernels (products, convolutions) "
+          f"{products / n_prof / 1e3:.2f} ms, other kernels (elementwise, reductions, copies) "
+          f"{(busy * 1e6 - products) / n_prof / 1e3:.2f} ms", flush=True)
+    print(f"train step: profiled {n_prof} steps: {wall / n_prof * 1e3:.2f} ms a step under the "
+          f"profiler, card busy {busy / n_prof * 1e3:.2f} ms a step ({busy / wall:.1%}, idle "
+          f"{1 - busy / wall:.1%}) in {n_launch:.0f} kernel launches a step "
+          f"({len(kernels)} kernels by name; {len(tree_leaves(state.params))} parameter "
+          f"leaves, each checked and selected by the skip); texture encoder "
+          f"{enc / n_prof * 1e3:.2f} ms a step, {enc / busy:.1%} of the kernel time; top: "
+          + "; ".join(f"{k[:48]} {v / n_prof / 1e3:.2f} ms" for k, v in top) + f" on {card}",
+          flush=True)
+    return dict(ms=ms, bound_ms=bound_ms, peak=peak, enc_share=enc / busy)
+
+
 def main(argv) -> int:
     kernel_only = "--kernel-only" in argv
     import torch
@@ -751,6 +1076,17 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     field_launches, _ = teacher_path_phase(failures, card, dev, field_rows)
     print(f"path phase (teacher): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train_launches, final, train_cfg, batches = train_phase(failures, card, dev)
+    print(f"path phase (training): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    step = train_step_timing(failures, card, dev, final, train_cfg, batches)
+    print(f"train step timing: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"train_step": {
+        "ms": step["ms"], "steps_per_s": 1e3 / step["ms"],
+        "rays_per_s": train_cfg.N_rand * 1e3 / step["ms"], "bound_ms": step["bound_ms"],
+        "peak_memory_bytes": step["peak"], "encoder_share": step["enc_share"],
+        "card": card}}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -764,8 +1100,10 @@ def main(argv) -> int:
             "route": "cuda",
             "source": "mofanerf_tpu_torch/csrc/field_kernel.cu",
             "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
-            # render_rays launches each field once a packet: half of the wrapper's count
-            "launches": field_launches // 2,
+            # render_rays launches each field once a packet: half of the wrapper's count,
+            # over the two paths B1 is on (the teacher render, training's renders)
+            "launches": (field_launches + train_launches) // 2,
+            "launches_by_path": {"teacher": field_launches // 2, "train": train_launches // 2},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

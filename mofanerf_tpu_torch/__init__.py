@@ -6,7 +6,10 @@ mofanerf_tpu. Entry points default to the card (``device="cuda"``) and
 raise when no card is present; pass ``device="cpu"`` explicitly to run the
 plain PyTorch versions of the kernels on the CPU.
 
-This first slice covers the distilled-student serving path
-(``render/serve.py``), whose per-packet render runs in one hand-written
-CUDA kernel (``ops/serve_kernel.py`` + ``csrc/serve_kernel.cu``).
+Ported so far: the distilled-student serving path (``render/serve.py``, one
+hand-written CUDA kernel a packet: ``ops/serve_kernel.py`` +
+``csrc/serve_kernel.cu``), the teacher two-pass render (``render/renderer.py``,
+the conditioned field through ``ops/field_kernel.py`` +
+``csrc/field_kernel.cu``), and training (``cli/run_train.py``,
+``train/{loop,state,checkpoint}.py``, ``data/``).
 """

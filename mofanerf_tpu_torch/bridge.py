@@ -5,7 +5,9 @@ becomes the port's tree of tensors with the same nesting and the same
 [in, out] weight layout, so `x @ W` means the same on both sides. Covers the
 student (`input`, `layers[i]`, `sigma`, `feat`, `view.w_dirs`, `rgb`, and
 `cond.{w_in, w_layers}` when cond_dim > 0) and the teacher parts the serving
-path reads: the ISM and the [21, 30] `exp_codes` bank.
+path reads: the ISM and the [21, 30] `exp_codes` bank; the whole teacher
+(`model_params_to_torch`) and a training state with its Adam moments
+(`train_state_to_torch`).
 
 Trees are also flattened by JAX key path (`['layers'][0]['w']`), in JAX's
 leaf order (dict keys sorted), which is how student artifacts name their
@@ -13,7 +15,7 @@ arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -23,32 +25,9 @@ from mofanerf_tpu_torch.models.student import StudentConfig, student_param_shape
 from mofanerf_tpu_torch.models.tex_encoder import CONV_WIDTHS, TextureEncoder
 from mofanerf_tpu_torch.render.renderer import N_EXP_SLOTS, MoFaNeRF
 from mofanerf_tpu_torch.utils.device import resolve_device
+from mofanerf_tpu_torch.utils.tree import flatten_with_keystr, map_tree  # noqa: F401 (re-exported)
 
 Params = Dict[str, Any]
-
-
-def flatten_with_keystr(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """[(key path, leaf)] in JAX's flatten order, key paths as
-    `jax.tree_util.keystr` writes them."""
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += flatten_with_keystr(tree[k], f"{prefix}[{k!r}]")
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, v in enumerate(tree):
-            out += flatten_with_keystr(v, f"{prefix}[{i}]")
-        return out
-    return [(prefix, tree)]
-
-
-def map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
 
 
 def _check_shapes(tree, shapes, where: str = "") -> None:
@@ -143,3 +122,25 @@ def model_params_to_torch(model_params, spec: MoFaNeRF, device="cuda") -> Params
     out["tex_encoder"] = tex_encoder_to_torch(model_params["tex_encoder"], spec.tex_dim,
                                               spec.uv_size, device)
     return out
+
+
+def train_state_to_torch(state, spec: MoFaNeRF, device="cuda"):
+    """A JAX TrainState (numpy leaves: `jax.tree.map(np.asarray, state)`) ->
+    the port's TrainState. optax.adam's state `(ScaleByAdamState(count, mu,
+    nu), ScaleByScheduleState(count))` becomes one AdamState: the two counts
+    advance and revert together, so they must agree."""
+    from mofanerf_tpu_torch.train.state import AdamState, TrainState
+
+    dev = resolve_device(device)
+    adam, sched = state.opt_state
+    count = int(np.asarray(adam.count))
+    if count != int(np.asarray(sched.count)):
+        raise ValueError(f"optimiser counts differ: adam {count}, schedule "
+                         f"{int(np.asarray(sched.count))}")
+    as_int = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=dev)
+    return TrainState(
+        params=model_params_to_torch(state.params, spec, dev),
+        opt_state=AdamState(as_int(count), model_params_to_torch(adam.mu, spec, dev),
+                            model_params_to_torch(adam.nu, spec, dev)),
+        step=as_int(state.step),
+    )

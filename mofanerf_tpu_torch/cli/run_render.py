@@ -15,47 +15,36 @@ through the fused field kernel, 64 + 64 samples a ray. With it, the fused
 serving renderer does. On the card every packet runs the CUDA kernels; with
 `--device cpu` their plain PyTorch versions run instead.
 
-Not ported yet, and refused with a message naming the ROADMAP item: a
-teacher checkpoint (Orbax files, A3) -- so the teacher renders seeded,
-untrained weights -- a UV texture JPEG (image reader, A5), `--fast`
-(occupancy grids, A6), distilling a student (A4), and serving a conditioned
-artifact (cond_dim > 0: its code comes from the teacher checkpoint, A3).
+The teacher's weights come from the newest `.pt` checkpoint of the port's
+training (`--ckpt_dir`, else `basedir/expname/checkpoints`); without one it
+renders seeded, untrained weights and says so. The person's UV map
+(`uvdir/<person>/1_neutral.jpg`) is encoded when it exists.
+
+Not ported yet, and refused with a message naming the ROADMAP item: the
+JAX package's Orbax checkpoints (A3), `--fast` (occupancy grids, A6),
+distilling a student (A4), and serving a conditioned artifact (cond_dim >
+0: its code comes from the teacher checkpoint, A3).
 """
 from __future__ import annotations
 
 import argparse
 import os
-import struct
 import time
-import zlib
 
 import numpy as np
 import torch
 
 from mofanerf_tpu_torch.config import load_config
+from mofanerf_tpu_torch.data.facescape import read_image
 from mofanerf_tpu_torch.ops.rays import pose_spherical
 from mofanerf_tpu_torch.ops.serve_kernel import pack_student
-from mofanerf_tpu_torch.render.renderer import (exp_code_for, init_model_params,
+from mofanerf_tpu_torch.render.renderer import (encode_texture, exp_code_for, init_model_params,
                                                 prepare_conditioning, render_path)
 from mofanerf_tpu_torch.render.serve import render_frame_serve
+from mofanerf_tpu_torch.train.checkpoint import latest_step, orbax_steps, restore_checkpoint
 from mofanerf_tpu_torch.train.distill import load_student
+from mofanerf_tpu_torch.utils.image_io import write_png
 from mofanerf_tpu_torch.utils.metrics import to8b
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] uint8 image as an RGB PNG (standard library only)."""
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def _orbit(n_views: int) -> np.ndarray:
@@ -75,17 +64,17 @@ def _render_teacher(args, rest) -> np.ndarray:
     cfg = load_config(rest)
     spec = cfg.model_spec()
     ckpt_dir = args.ckpt_dir or os.path.join(cfg.basedir, cfg.expname, "checkpoints")
-    if os.path.isdir(ckpt_dir) and any(d.isdigit() for d in os.listdir(ckpt_dir)):
+    step = latest_step(ckpt_dir)
+    if step is None and orbax_steps(ckpt_dir):
         raise SystemExit(
-            f"{ckpt_dir} holds a teacher checkpoint: those are Orbax files, which the "
-            "port reads once the torch-free checkpoint reader lands (ROADMAP A3)")
-    uv_path = os.path.join(cfg.uvdir, str(args.person), "1_neutral.jpg")
-    if os.path.exists(uv_path):
-        raise SystemExit(
-            f"{uv_path} exists: encoding a UV texture from disk needs the image "
-            "reader of the data slice (ROADMAP A5); encode_texture takes a UV tensor")
+            f"{ckpt_dir} holds only Orbax checkpoints of the JAX package; the port reads "
+            "its own .pt checkpoints, and an Orbax reader is ROADMAP A3 (queued under A11)")
     params = init_model_params(torch.Generator().manual_seed(0), spec, device=args.device)
-    print("WARNING: rendering an untrained model")
+    if step is not None:
+        params = restore_checkpoint(ckpt_dir, params, step)
+        print(f"loaded checkpoint (step {step})")
+    else:
+        print("WARNING: rendering an untrained model")
     dev = params["exp_codes"].device
 
     shape = torch.zeros(spec.shape_dim, device=dev)
@@ -94,6 +83,11 @@ def _render_teacher(args, rest) -> np.ndarray:
         shape = torch.from_numpy(
             np.load(cfg.shape_codes_path)[args.person].astype(np.float32)).to(dev)
     tex = torch.zeros(spec.tex_dim, device=dev)
+    uv_path = os.path.join(cfg.uvdir, str(args.person), "1_neutral.jpg")
+    if os.path.exists(uv_path):
+        uv = read_image(uv_path, is_uvmap=True, uv_size=spec.uv_size)
+        with torch.no_grad():
+            tex = encode_texture(params, spec, torch.from_numpy(uv).to(dev))
     cond = prepare_conditioning(params, spec, shape, exp_code_for(params, args.expression), tex)
 
     poses = _orbit(args.n_views)

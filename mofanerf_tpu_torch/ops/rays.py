@@ -1,5 +1,5 @@
 """Ray generation and camera-path helpers (counterpart of
-mofanerf_tpu/ops/rays.py: `get_rays`, `pose_spherical`).
+mofanerf_tpu/ops/rays.py: `get_rays`, `get_rays_at`, `pose_spherical`).
 
 Convention matches the reference: pixel grid in xy-indexing, camera looks
 down -z, y up.
@@ -27,6 +27,20 @@ def get_rays(H: int, W: int, K: torch.Tensor, c2w: torch.Tensor):
         dim=-1,
     )  # [H, W, 3] camera-frame directions
     rays_d = dirs @ c2w[:3, :3].T  # rotate into world frame
+    rays_o = c2w[:3, -1].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def get_rays_at(coords_ij: torch.Tensor, K: torch.Tensor, c2w: torch.Tensor):
+    """Rays through a set of pixel coordinates: coords_ij [N, 2] (row j,
+    col i) as f32. Returns (rays_o [N, 3], rays_d [N, 3]), differentiable in
+    c2w. A batch of training rays keeps one static [N] shape this way."""
+    j = coords_ij[:, 0]
+    i = coords_ij[:, 1]
+    dirs = torch.stack(
+        [(i - K[0, 2]) / K[0, 0], -(j - K[1, 2]) / K[1, 1], -torch.ones_like(i)], dim=-1
+    )
+    rays_d = dirs @ c2w[:3, :3].T
     rays_o = c2w[:3, -1].expand(rays_d.shape)
     return rays_o, rays_d
 

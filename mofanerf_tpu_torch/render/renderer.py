@@ -16,8 +16,10 @@ is close to, not equal to, the JAX XLA path, which also adds biases in
 bfloat16. The kernel's operands (`pack_fused_params`, a cast of every weight)
 are made once a frame by `pack_frame` and handed down to the packets.
 
-On the card the render is inference only; on the CPU it is plain
-differentiable tensor code.
+Training asks for the other route explicitly (`render_rays(autograd=True)`):
+both fields run `models/field.py::apply_field_folded`, plain differentiable
+tensor code in the compute dtype, as the JAX train step differentiates its
+XLA field and not the Pallas kernel. Inference keeps the kernel.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
-from mofanerf_tpu_torch.models.field import FieldConfig, fold_conditioning, init_field_params
+from mofanerf_tpu_torch.models.field import (FieldConfig, apply_field_folded, fold_conditioning,
+                                             init_field_params)
 from mofanerf_tpu_torch.models.ism import init_ism_params, modulate_expression
 from mofanerf_tpu_torch.models.tex_encoder import TextureEncoder, init_tex_encoder_params
 from mofanerf_tpu_torch.ops.composite import composite
@@ -136,8 +139,13 @@ def prepare_conditioning(
 
 
 def exp_code_for(params: Params, exp_type) -> torch.Tensor:
-    """Expression latent lookup by expression index (bank slot)."""
-    return params["exp_codes"][exp_type]
+    """Expression latent lookup by expression index (bank slot): an int, or
+    an integer tensor on the bank's device, looked up on the device (indexing
+    with a 0-dim tensor would read it back to the host and wait for the card)."""
+    bank = params["exp_codes"]
+    if isinstance(exp_type, torch.Tensor):
+        return torch.index_select(bank, 0, exp_type.reshape(1))[0]
+    return bank[exp_type]
 
 
 class FramePack(NamedTuple):
@@ -163,6 +171,16 @@ def _run_field(fused: FusedParams, cfg: FieldConfig, pts, dir_feat_ray, n_sample
     return raw_rgb.reshape(n_rays, n_samples, 3), raw_sigma.reshape(n_rays, n_samples)
 
 
+def _run_field_autograd(field_params: Params, cfg: FieldConfig, cond: Params, pts,
+                        dir_feat_ray, n_samples):
+    """The differentiable route: apply_field_folded, outputs in the compute dtype."""
+    n_rays = pts.shape[0]
+    pe = fourier_embed(pts.reshape(-1, 3), cfg.multires)
+    raw_rgb, raw_sigma = apply_field_folded(field_params, cond, pe, dir_feat_ray, cfg,
+                                            samples_per_ray=n_samples)
+    return raw_rgb.reshape(n_rays, n_samples, 3), raw_sigma.reshape(n_rays, n_samples)
+
+
 def render_rays(
     params: Params,
     spec: MoFaNeRF,
@@ -173,6 +191,7 @@ def render_rays(
     train: bool = False,
     draws: Dict[str, torch.Tensor] | None = None,
     pack: FramePack | None = None,
+    autograd: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Render a packet of rays. Deterministic when train=False (perturb=0,
     det importance sampling). With train=True the random numbers are injected
@@ -181,12 +200,22 @@ def render_rays(
     that is missing is drawn from `generator`.
 
     `pack` holds the kernel's operands for `cond`; frames pass it so that
-    the weights are cast once, not once a packet."""
+    the weights are cast once, not once a packet. `autograd=True` runs both
+    fields through apply_field_folded instead of the kernel, so that the
+    render can be differentiated (the train step's route)."""
     rc = spec.render
     n = rays_o.shape[0]
     dev = rays_o.device
-    if pack is None:
-        pack = pack_frame(params, spec, cond)
+    if autograd:
+        def field(name, pts, dirf, n_samples):
+            return _run_field_autograd(params[name], getattr(spec, name), getattr(cond, name),
+                                       pts, dirf, n_samples)
+    else:
+        if pack is None:
+            pack = pack_frame(params, spec, cond)
+
+        def field(name, pts, dirf, n_samples):
+            return _run_field(getattr(pack, name), getattr(spec, name), pts, dirf, n_samples)
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     de = fourier_embed(viewdirs, spec.coarse.multires_views)  # [N, 27]
     # the fine field may use a different view-embedding bandwidth
@@ -215,7 +244,7 @@ def render_rays(
     # --- coarse pass
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     dirf_c = de @ params["coarse"]["view"]["w_dirs"]
-    raw_rgb, raw_sigma = _run_field(pack.coarse, spec.coarse, pts, dirf_c, rc.n_coarse)
+    raw_rgb, raw_sigma = field("coarse", pts, dirf_c, rc.n_coarse)
     c = composite(raw_rgb, raw_sigma, z_vals, rays_d, noise_std, rc.white_bkgd,
                   normal("noise_c", rc.n_coarse), rc.sigma_activation)
 
@@ -236,7 +265,7 @@ def render_rays(
         # --- fine pass
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_all[..., None]
         dirf_f = de_fine @ params["fine"]["view"]["w_dirs"]
-        f_rgb, f_sigma = _run_field(pack.fine, spec.fine, pts, dirf_f, n_fine)
+        f_rgb, f_sigma = field("fine", pts, dirf_f, n_fine)
         cf = composite(f_rgb, f_sigma, z_all, rays_d, noise_std, rc.white_bkgd,
                        normal("noise_f", n_fine), rc.sigma_activation)
         out["rgb"], out["disp"], out["acc"] = cf.rgb, cf.disp, cf.acc

@@ -1,0 +1,95 @@
+"""Train-state checkpoints as torch files (counterpart of
+mofanerf_tpu/train/checkpoint.py).
+
+One file a step, `<ckpt_dir>/<step:06d>.pt`: a flat dict of CPU tensors
+keyed by JAX key paths (`['params']['coarse']['xyz']['b']`,
+`['opt_state']['mu'][...]`, `['opt_state']['count']`, `['step']`). A save
+writes a temporary file and renames it, so a save at an existing step
+replaces it whole. The JAX package's Orbax step directories are never taken
+for one: the port does not read them yet (ROADMAP A3, queued under A11).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import List
+
+import torch
+
+from mofanerf_tpu_torch.train.state import AdamState, TrainState
+from mofanerf_tpu_torch.utils.tree import flatten_with_keystr, tree_unflatten
+
+_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+def _as_tree(state: TrainState) -> dict:
+    opt = state.opt_state
+    return {"params": state.params,
+            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+            "step": state.step}
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, step: int) -> str:
+    """Save `state` as ckpt_dir/<step>.pt, replacing a checkpoint of the same
+    step (an interval save and the final save can land on one step)."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{step:06d}.pt")
+    flat = {k: v.detach().cpu() for k, v in flatten_with_keystr(_as_tree(state))}
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(flat, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The newest step with a `.pt` checkpoint in ckpt_dir, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for m in map(_STEP_FILE.match, os.listdir(ckpt_dir)) if m]
+    return max(steps) if steps else None
+
+
+def orbax_steps(ckpt_dir: str) -> List[int]:
+    """Steps of the JAX package's Orbax checkpoints (digit-named directories)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(d) for d in os.listdir(ckpt_dir)
+                  if d.isdigit() and os.path.isdir(os.path.join(ckpt_dir, d)))
+
+
+def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
+    """Restore into the structure of `target`: a TrainState, or a model
+    param tree to restore only the params. Tensors land on the device of
+    target's leaves. step=None restores the newest."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            if orbax_steps(ckpt_dir):
+                raise FileNotFoundError(
+                    f"{ckpt_dir} holds only Orbax checkpoints of the JAX package (steps "
+                    f"{orbax_steps(ckpt_dir)}); the port reads its own .pt checkpoints, and "
+                    "an Orbax reader is ROADMAP A3 (queued under A11)")
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = os.path.join(os.path.abspath(ckpt_dir), f"{step:06d}.pt")
+    flat = torch.load(path, map_location="cpu", weights_only=True)
+    whole = isinstance(target, TrainState)
+    tree = _as_tree(target) if whole else {"params": target}
+    want = flatten_with_keystr(tree)
+    missing = [k for k, _ in want if k not in flat]
+    extra = sorted(set(flat) - {k for k, _ in want}) if whole else []
+    if missing or extra:
+        raise ValueError(f"{path} does not hold this model's state: missing {missing[:5]}, "
+                         f"unexpected {extra[:5]}")
+    leaves = []
+    for k, like in want:
+        t = flat[k]
+        if t.shape != like.shape or t.dtype != like.dtype:
+            raise ValueError(f"{path}: {k} is {tuple(t.shape)} {t.dtype}, the model's "
+                             f"{tuple(like.shape)} {like.dtype}")
+        leaves.append(t.to(like.device))
+    out = tree_unflatten(tree, leaves)
+    if not whole:
+        return out["params"]
+    opt = out["opt_state"]
+    return TrainState(out["params"], AdamState(opt["count"], opt["mu"], opt["nu"]), out["step"])

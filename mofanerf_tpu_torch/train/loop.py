@@ -1,0 +1,207 @@
+"""Host-side training driver (counterpart of mofanerf_tpu/train/loop.py,
+the host-data path).
+
+Each iteration picks a random training image, reads the target and the
+identity's UV map (cached on the card after its first read), draws
+landmark-biased ray coordinates (a centre crop during `precrop_iters`),
+and runs one `train_step`; on their intervals it logs, checkpoints and
+renders a held-out image and the orbit through the inference renderer
+(kernel B1 on the card), as PNGs. Batches are assembled by `make_batch` on
+a prefetch thread while the card runs the previous step.
+
+Not ported yet, and refused naming the ROADMAP item: occupancy-grid
+maintenance (`i_grid > 0`, A6) and the device-resident data path
+(`device_data`, A5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mofanerf_tpu_torch.config import Config
+from mofanerf_tpu_torch.data.facescape import (FacescapeDataset, load_facescape_data,
+                                               load_shape_codes, read_image, valid_persons)
+from mofanerf_tpu_torch.data.landmarks import TrainRaySampler, anneal_lm_frac
+from mofanerf_tpu_torch.data.prefetch import Prefetcher
+from mofanerf_tpu_torch.ops.rays import get_rays_at
+from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
+                                                prepare_conditioning, render_frame, render_path)
+from mofanerf_tpu_torch.train.checkpoint import (latest_step, orbax_steps, restore_checkpoint,
+                                                 save_checkpoint)
+from mofanerf_tpu_torch.train.state import (Batch, create_train_state, make_optimizer,
+                                            train_step)
+from mofanerf_tpu_torch.utils.device import resolve_device
+from mofanerf_tpu_torch.utils.image_io import write_png
+from mofanerf_tpu_torch.utils.logger import TrainLogger
+from mofanerf_tpu_torch.utils.metrics import to8b
+
+
+def _uv_map(ds: FacescapeDataset, spec: MoFaNeRF, pid: int, uv_cache: dict, device):
+    """The identity's UV map on `device`, read once."""
+    if pid not in uv_cache:
+        uv = read_image(ds.uv_paths[pid], is_uvmap=True, uv_size=spec.uv_size)
+        uv_cache[pid] = torch.from_numpy(uv).to(device)
+    return uv_cache[pid]
+
+
+def make_batch(i: int, cfg: Config, spec: MoFaNeRF, ds: FacescapeDataset, K: np.ndarray,
+               sampler: TrainRaySampler, rng: np.random.Generator, uv_cache: dict,
+               device) -> Batch:
+    """Host-side batch assembly of iteration `i`: a random training image,
+    its target and UV map, ray coordinates drawn from `rng` (precrop and the
+    landmark anneal by `i`), and the rays through them, on `device`."""
+    img_i = int(rng.choice(ds.i_split[0]))
+    pid = int(ds.id_codes[img_i])
+    uv_map = _uv_map(ds, spec, pid, uv_cache, device)
+    target = read_image(ds.image_paths[img_i], half_res=cfg.half_res, white_bkgd=cfg.white_bkgd)
+    pose = ds.poses[img_i]
+    precrop = cfg.precrop_frac if i < cfg.precrop_iters else None
+    coords = sampler.sample(
+        rng, cfg.N_rand, K, pose, pid, int(ds.exp_types[img_i]),
+        precrop_frac=precrop, target_img=target,
+        lm_frac=anneal_lm_frac(i, cfg.lm_frac, cfg.lm_frac_anneal_iters),
+    )
+    rays_o, rays_d = get_rays_at(torch.from_numpy(coords.astype(np.float32)),
+                                 torch.from_numpy(np.asarray(K, np.float32)),
+                                 torch.from_numpy(np.asarray(pose, np.float32)))
+    return Batch(
+        rays_o=rays_o.to(device),
+        rays_d=rays_d.to(device),
+        target_rgb=torch.from_numpy(target[coords[:, 0], coords[:, 1]]).to(device),
+        shape_code=torch.from_numpy(ds.shape_codes[img_i]).to(device),
+        exp_type=torch.tensor(int(ds.exp_types[img_i]), dtype=torch.int64, device=device),
+        uv_map=uv_map,
+        coords=coords,
+    )
+
+
+def step_generator(seed: int, i: int, device) -> torch.Generator:
+    """The random draws of iteration i (the JAX loop keys its step with
+    PRNGKey(seed * 1_000_003 + i))."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
+
+
+def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cuda"):
+    """Train from cfg; resumes from the newest `.pt` in the experiment's
+    checkpoints unless `no_reload`. Returns the final TrainState."""
+    if cfg.i_grid > 0:
+        raise NotImplementedError(
+            f"i_grid={cfg.i_grid}: occupancy-grid maintenance during training is ported "
+            "with the occupancy slice (ROADMAP A6); pass --i_grid 0")
+    if cfg.device_data:
+        raise NotImplementedError(
+            "device_data: the device-resident data path is ported with ROADMAP A5's "
+            "data/device_data.py; the host-data path (device_data = False) trains")
+    dev = resolve_device(device)
+    spec = cfg.model_spec()
+    exp_dir = os.path.join(cfg.basedir, cfg.expname)
+    ckpt_dir = os.path.join(exp_dir, "checkpoints")
+    os.makedirs(exp_dir, exist_ok=True)
+    logger = TrainLogger(os.path.join(exp_dir, "train_log.txt"))
+
+    # per-run config snapshot: args.txt with every flag, config.txt mirroring
+    # the config file when one was used
+    with open(os.path.join(exp_dir, "args.txt"), "w") as f:
+        for k, v in sorted(dataclasses.asdict(cfg).items()):
+            f.write(f"{k} = {v}\n")
+    if cfg.config and os.path.exists(cfg.config):
+        with open(cfg.config) as src, open(os.path.join(exp_dir, "config.txt"), "w") as dst:
+            dst.write(src.read())
+
+    persons = valid_persons(cfg.datadir, cfg.person_num)
+    shape_codes = load_shape_codes(cfg.shape_codes_path)
+    ds = load_facescape_data(cfg.datadir, persons, shape_codes, uvdir=cfg.uvdir,
+                             half_res=cfg.half_res, testskip=cfg.testskip)
+    H, W, focal = ds.hwf
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float32)
+
+    landmarks = None
+    if os.path.exists(cfg.landmarks_path):
+        landmarks = np.load(cfg.landmarks_path) / 50.0   # world units
+    sampler = TrainRaySampler(landmarks, H, W, lm_frac=cfg.lm_frac)
+
+    state = create_train_state(torch.Generator().manual_seed(seed), spec, cfg.lrate,
+                               cfg.lrate_decay, device=dev)
+    tx = make_optimizer(cfg.lrate, cfg.lrate_decay)
+    start = 0
+    if not cfg.no_reload and (latest_step(ckpt_dir) is not None or orbax_steps(ckpt_dir)):
+        state = restore_checkpoint(ckpt_dir, state)
+        start = int(state.step)
+        logger.note(f"resumed from checkpoint at step {start}")
+    else:
+        logger.note("no checkpoint found — FRESH run (step and lr schedule "
+                    "start at 0; log below appends to any prior run's)")
+
+    uv_cache: dict = {}
+    rng = np.random.default_rng(seed + 1)
+    # eval renders draw from their own generator: `rng` is consumed on the
+    # prefetch thread
+    rng_eval = np.random.default_rng(seed + 2)
+    n_total = n_iters if n_iters is not None else cfg.n_iters
+    t0 = time.time()
+    batches = Prefetcher(
+        lambda i: make_batch(i, cfg, spec, ds, K, sampler, rng, uv_cache, dev), depth=2,
+    ).iterate(start, n_total)
+    for i, batch in zip(range(start, n_total), batches):
+        state, metrics = train_step(state, batch, step_generator(seed, i, dev), spec, tx)
+
+        if (i + 1) % cfg.i_print == 0:
+            loss, psnr = float(metrics["loss"]), float(metrics["psnr"])
+            ok = int(metrics["step_ok"])
+            rate = (i + 1 - start) / (time.time() - t0)
+            print(f"[TRAIN] iter {i + 1} loss {loss:.5f} psnr {psnr:.2f} ok {ok} "
+                  f"it/s {rate:.2f}", flush=True)
+            logger.write(i + 1, Loss=loss, PSNR=psnr, step_ok=ok)
+
+        if (i + 1) % cfg.i_weights == 0:
+            path = save_checkpoint(ckpt_dir, state, i + 1)
+            logger.note(f"checkpoint saved: {path}")
+
+        if (i + 1) % cfg.i_testset == 0 and len(ds.i_split[2]) > 0:
+            _render_test_image(spec, state, ds, K, rng_eval, exp_dir, i + 1, uv_cache, dev)
+
+        if (i + 1) % cfg.i_video == 0:
+            _render_orbit(cfg, spec, state, ds, rng_eval, exp_dir, i + 1, uv_cache, dev)
+
+    save_checkpoint(ckpt_dir, state, n_total)
+    logger.note("training finished")
+    return state
+
+
+def _frame_cond(spec, state, ds, idx, uv_cache, device):
+    params = state.params
+    with torch.no_grad():
+        tex = encode_texture(params, spec, _uv_map(ds, spec, int(ds.id_codes[idx]), uv_cache,
+                                                   device))
+        return prepare_conditioning(
+            params, spec, torch.from_numpy(ds.shape_codes[idx]).to(device),
+            exp_code_for(params, int(ds.exp_types[idx])), tex)
+
+
+def _render_orbit(cfg, spec, state, ds, rng, exp_dir, step, uv_cache, device):
+    """The orbit over `render_poses` for a random training frame's codes,
+    as PNG frames (the port writes no video)."""
+    train_i = int(rng.choice(ds.i_split[0]))
+    cond = _frame_cond(spec, state, ds, train_i, uv_cache, device)
+    rgbs, _ = render_path(state.params, spec, cond, ds.render_poses, ds.hwf,
+                          render_factor=max(2, cfg.render_factor))
+    out_dir = os.path.join(exp_dir, f"video_{step:06d}")
+    os.makedirs(out_dir, exist_ok=True)
+    for k, rgb in enumerate(rgbs):
+        write_png(os.path.join(out_dir, f"{k:03d}.png"), to8b(rgb))
+
+
+def _render_test_image(spec, state, ds, K, rng, exp_dir, step, uv_cache, device):
+    """A half-resolution render of a random held-out frame."""
+    test_i = int(rng.choice(ds.i_split[2]))
+    cond = _frame_cond(spec, state, ds, test_i, uv_cache, device)
+    H, W, _ = ds.hwf
+    out = render_frame(state.params, spec, cond, H // 2, W // 2, K / 2, ds.poses[test_i][:3])
+    out_dir = os.path.join(exp_dir, f"testset_{step:06d}")
+    os.makedirs(out_dir, exist_ok=True)
+    write_png(os.path.join(out_dir, f"{test_i:03d}.png"), to8b(out["rgb"]))

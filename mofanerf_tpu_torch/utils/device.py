@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -17,3 +19,18 @@ def resolve_device(device="cuda") -> torch.device:
             "plain PyTorch path on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def f32_products():
+    """f32 matrix products and convolutions in full f32 (TF32 off in cuBLAS
+    and cuDNN) inside the block, forward and backward alike; the previous
+    settings are restored after it."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -105,12 +105,16 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 
 def test_teacher_entry_points_default_to_the_card(tmp_path):
-    """The teacher slice's entry points ask for the card too."""
+    """The teacher and training slices' entry points ask for the card too."""
     from mofanerf_tpu_torch import bridge
     from mofanerf_tpu_torch.cli import run_render
     from mofanerf_tpu_torch.models.field import FieldConfig, init_field_params
     from mofanerf_tpu_torch.models.tex_encoder import init_tex_encoder_params
+    from mofanerf_tpu_torch.cli import run_train
+    from mofanerf_tpu_torch.config import Config
     from mofanerf_tpu_torch.render.renderer import MoFaNeRF, init_model_params
+    from mofanerf_tpu_torch.train.loop import train
+    from mofanerf_tpu_torch.train.state import create_train_state
 
     cfg = FieldConfig(depth=6, width=64)
     spec = MoFaNeRF(coarse=cfg, fine=cfg, uv_size=128)
@@ -129,6 +133,10 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
         lambda: init_tex_encoder_params(gen, tex_dim=16, uv_size=128),
         lambda: bridge.field_to_torch(on_cpu["coarse"], cfg),
         lambda: run_render.main(teacher_argv),
+        lambda: create_train_state(gen, spec),
+        lambda: train(Config(basedir=str(tmp_path / "logs"), i_grid=0), n_iters=1),
+        lambda: run_train.main(["--basedir", str(tmp_path / "logs"), "--i_grid", "0",
+                                "--n_iters", "1"]),
     ]
     if torch.cuda.is_available():
         assert init_field_params(gen, cfg)["xyz"]["w_pts"].device.type == "cuda"
@@ -142,9 +150,14 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
 
 
 def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
-    """The CLI's teacher route on the CPU at a tiny size, and its refusals:
-    each names the ROADMAP item that lifts it."""
+    """The CLI's teacher route on the CPU at a tiny size: seeded weights, a UV
+    JPEG, a port checkpoint; and its refusals, each naming the ROADMAP item
+    that lifts it."""
     from mofanerf_tpu_torch.cli import run_render
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.train.checkpoint import save_checkpoint
+    from mofanerf_tpu_torch.train.state import create_train_state
+    from mofanerf_tpu_torch.utils.image_io import write_jpeg
 
     np.save(tmp_path / "factors_id.npy",
             np.random.default_rng(0).standard_normal((3, 50)).astype(np.float32))
@@ -164,10 +177,19 @@ def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
 
     with pytest.raises(SystemExit, match="ROADMAP A6"):
         run_render.main(argv + ["--fast"])
+    # the person's UV JPEG is read and encoded: another texture code, another frame
     os.makedirs(tmp_path / "uv" / "2")
-    (tmp_path / "uv" / "2" / "1_neutral.jpg").write_bytes(b"not read")
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        run_render.main(argv)
+    write_jpeg(str(tmp_path / "uv" / "2" / "1_neutral.jpg"),
+               np.random.default_rng(3).integers(0, 256, (32, 32, 3), dtype=np.uint8))
+    textured = run_render.main(argv)
+    assert np.isfinite(textured).all() and np.abs(textured - frames).max() > 0
+    # a port checkpoint is loaded: other weights, another frame
+    spec = load_config(argv[argv.index("--netwidth"):]).model_spec()
+    state = create_train_state(torch.Generator().manual_seed(1), spec, device="cpu")
+    save_checkpoint(str(tmp_path / "pt"), state, 5)
+    trained = run_render.main(argv + ["--ckpt_dir", str(tmp_path / "pt")])
+    assert np.isfinite(trained).all() and np.abs(trained - textured).max() > 0
+    # a directory of Orbax steps only is refused
     os.makedirs(tmp_path / "ckpts" / "1000")
     with pytest.raises(SystemExit, match="ROADMAP A3"):
         run_render.main(argv + ["--person", "1", "--ckpt_dir", str(tmp_path / "ckpts")])
