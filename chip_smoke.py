@@ -23,8 +23,10 @@ Phases, each failing loudly:
        wgmma design takes in bf16; f32 runs the mma.sync design), at ragged
        shapes (fewer rows than one row block; fewer blocks than the card has
        SMs, with blocks that span rays; more blocks than SMs with a ragged
-       last one) and at the packet shape of the teacher path; bf16 once more
-       at the packet shape with contracting weights (x 0.4, atol 5e-3);
+       last one), at the packet shape of the teacher path and, for the fine
+       field, at distillation's (32768 points, one sample a ray) and --fast's
+       (8192 rays x 32 samples; f32 on a part of both); bf16 once more at
+       each timed shape with contracting weights (x 0.4, atol 5e-3);
      - a yardstick, not on any path: one hidden layer's product at the packet
        shapes through torch.matmul (`layer_matmul_ms`);
   4. serving path: a seeded bf16 student artifact through the run_render CLI
@@ -38,14 +40,26 @@ Phases, each failing loudly:
      512x512 with 64 + 64 samples.
   6. training path: a 512x512 FaceScape-shaped fixture written by the port
      (JPEG UV maps decoded by the port), the run_train CLI at the full width of
-     configs/exp_mofanerf.txt with a checkpoint mid-run, a resumed run, and
-     run_render from the last checkpoint (its held-out image, orbit and CLI
-     views go through the field kernel); one small f32 step on the card
+     configs/exp_mofanerf.txt keeping its occupancy grid (updated every 4
+     steps), with a checkpoint mid-run, a resumed run (the grid resumed too),
+     and run_render from the last checkpoint (its held-out image, orbit and
+     CLI views go through the field kernel); one small f32 step on the card
      against the CPU; the full-width step timed (median after two warm-ups,
      synchronised around each step), its peak memory and operations bound, and
      three steps under torch.profiler (busy share, the texture encoder's share).
+  7. distillation path, on the training phase's checkpoint directory: the
+     run_render CLI distils a student at the defaults (2000 steps of 32768
+     points; the teacher's queries through the field kernel, one launch a
+     step), saves it with its provenance and serves it (2 views at 512x512)
+     through the serving kernel, then serves it again from the file; an
+     expression rig (--distill_cond) and a two-avatar morph
+     (--distill_avatars 0,1) at 100 steps, each distilled, saved and served
+     again; --fast through the kept grid; and, as a reading, the PSNR of the
+     served and the fast frame against the teacher's.
   The path phases check shapes, ranges, that the kernel's launch count is
-  the expected one, and that a small frame or step agrees with the CPU.
+  the expected one, and that a small frame or step agrees with the CPU; the
+  distillation phase also that the loss fell and that an artifact served from
+  its file gives the distilling call's frames.
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without it.
 """
@@ -87,9 +101,19 @@ TRAIN_STEPS = (8, 16)
 TRAIN_SIDE = 512
 TRAIN_ORBIT_FACTOR = 8
 TIMED_STEPS, PROFILED_STEPS = 8, 3
+TRAIN_GRID_EVERY = 4   # the runs' grid interval and warm-up: updates at steps 4, 8, 12, 16
+# the training runs' grid threshold: the first of these quantiles of the step-0 coarse
+# density whose dilated grid holds at most GRID_STEP0_SHARE of the cells
+GRID_QUANTILES, GRID_STEP0_SHARE = (0.9, 0.95, 0.98, 0.99, 0.995, 0.998, 0.999), 0.15
+DISTILL_SHORT_STEPS = 100   # the rig's and the morph's distillations (the first runs the default)
+DISTILL_TIMED_STEPS, DISTILL_PROFILED_STEPS = 50, 10
 # (rays, samples a ray) of the field kernel's small ragged checks: fewer rows than one row
 # block; fewer blocks than SMs (idle CTAs in a persistent grid), 67 samples dividing no block
 RAGGED = ((1, 50), (61, 67))
+# (rays, samples a ray) of the field kernel on this slice's paths: distillation's teacher
+# queries (DistillConfig.batch points, one a ray) and the fine field of `run_render --fast`
+# (a packet of spec.render.packet_size rays, k_keep = 32 samples)
+SLICE_SHAPES = {"distill": (32768, 1), "fast": (8192, 32)}
 
 
 def fail(failures, msg):
@@ -257,9 +281,26 @@ def field_inputs(cfg, w_dirs, n_rays, n_samples, seed, dev):
     return pe, dirf
 
 
+def point_inputs(cfg, w_dirs, n, seed, dev):
+    """Embedded points and view features as distillation makes them: points
+    uniform in the head's box, a random unit direction each (one sample a ray)."""
+    import torch
+
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+
+    gen = torch.Generator().manual_seed(seed)
+    pts = (torch.rand((n, 3), generator=gen) * 10.0 - 5.0).to(dev)
+    dirs = torch.randn((n, 3), generator=gen).to(dev)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    pe = fourier_embed(pts, cfg.multires).contiguous()
+    return pe, (fourier_embed(dirs, cfg.multires_views) @ w_dirs).contiguous()
+
+
 def field_kernel_phase(failures, dev):
     """Kernel B1 against its plain version at full width: both fields, bf16
-    and f32, at ragged shapes and at the packet shape of the main path."""
+    and f32, at ragged shapes and at the packet shape of the teacher path;
+    the fine field also at distillation's and --fast's shapes (SLICE_SHAPES).
+    Each timed shape is held sharply in bf16 with contracting weights too."""
     import torch
 
     from mofanerf_tpu_torch.bridge import map_tree
@@ -277,6 +318,58 @@ def field_kernel_phase(failures, dev):
             torch.cuda.synchronize()
         return got, ref, (time.perf_counter() - t0) * 1e3
 
+    def hold(name, dt_name, fused, pe, dirf, cfg, n_rays, ns, block):
+        """The kernel against its plain version at one shape: (max |diff|, the
+        plain version's ms)."""
+        got, ref, ref_time = both(fused, pe, dirf, cfg, ns)
+        # tolerance scaled to the output's magnitude. f32: only the order of the
+        # sums differs, so this is the sharp check of the layer plan. bf16: a sum in
+        # another order lands across a rounding boundary of a layer's output now and
+        # then, the next layer spreads that one-ulp change over its whole width, and
+        # with full-gain random weights up to 25 layers carry it on: the two versions
+        # end about one bf16 ulp a layer apart in the rms and a few percent apart at
+        # the worst of a million points, so bf16 is held in the max and in the rms
+        # here (the 99.9% quantile is printed as a reading), and sharply with
+        # contracting weights below.
+        scale = max(1.0, float(ref.abs().max()))
+        tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
+        diff = (got - ref).abs()
+        rms = float(diff.square().mean().sqrt())
+        k999 = max(1, int(0.999 * diff.numel()))
+        q999 = float(diff.flatten().kthvalue(k999).values)
+        bad = int((diff > tol).sum()) + int(rms > tol_rms)
+        finite = bool(torch.isfinite(got).all())
+        ragged = (n_rays * ns) % block != 0
+        print(f"field kernel {name} {dt_name} {n_rays} rays x {ns} samples "
+              f"(block {block} rows, ragged {ragged}): max|kernel-plain| rgb "
+              f"{float(diff[:, :3].max()):.3e} sigma {float(diff[:, 3].max()):.3e} "
+              f"rms {rms:.3e} 99.9% {q999:.3e} (tol max {tol:.3e} rms {tol_rms:.3e} = "
+              f"{FIELD_TOL[dt_name]} "
+              f"x max(1, max|plain| {float(ref.abs().max()):.3f})), outside tol {bad}, "
+              f"finite {finite}",
+              flush=True)
+        if bad or not finite or got.shape != (n_rays * ns, 4):
+            fail(failures, f"field kernel {name} {dt_name} {n_rays} x {ns} disagrees with its "
+                           f"plain version")
+        return float(diff.max()), ref_time
+
+    def hold_sharp(name, params, codes, cfg, pe, dirf, n_rays, ns):
+        """The sharp bf16 check: weights x 0.4 contract, so a rounding flip dies
+        out instead of growing through the layers, and one wrong tile, swizzled
+        chunk or accumulator lane stands out."""
+        small = map_tree(lambda w: w * CONTRACT, params)
+        fused_c = fk.pack_fused_params(small, fold_conditioning(small, *codes), cfg)
+        got, ref, _ = both(fused_c, pe, dirf * CONTRACT, cfg, ns)
+        diff = (got - ref).abs()
+        bad = int((diff > CONTRACT_ATOL).sum())
+        print(f"field kernel {name} bfloat16 {n_rays} rays x {ns} samples, "
+              f"weights x {CONTRACT}: max|kernel-plain| rgb {float(diff[:, :3].max()):.3e} "
+              f"sigma {float(diff[:, 3].max()):.3e} (atol {CONTRACT_ATOL}; max|plain| "
+              f"{float(ref.abs().max()):.3f}), outside tol {bad}", flush=True)
+        if bad or not bool(torch.isfinite(got).all()) or float(ref.abs().max()) < 0.05:
+            fail(failures, f"field kernel {name} bf16 {n_rays} x {ns} with contracting weights "
+                           f"disagrees with its plain version")
+
     rows = {}
     for name, (depth, width, n_samples) in FIELDS.items():
         for dt_name, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -288,88 +381,57 @@ def field_kernel_phase(failures, dev):
             fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
             n_layers = fused.w_stack.shape[0]
             block = fk.block_rows(cfg)
-            # f32 runs FFMA: the fine field's check takes a part of a packet
-            n_time = PACKET if (dt == torch.bfloat16 or name == "coarse") else PACKET // 8
+            w_dirs = params["view"]["w_dirs"]
             worst = 0.0
-            ref_time = None
-            for n_rays, ns in RAGGED + ((333, n_samples - 1), (n_time, n_samples)):
-                pe, dirf = field_inputs(cfg, params["view"]["w_dirs"], n_rays, ns, 5, dev)
-                got, ref, ref_time = both(fused, pe, dirf, cfg, ns)
-                # tolerance scaled to the output's magnitude. f32: only the order of the
-                # sums differs, so this is the sharp check of the layer plan. bf16: a sum in
-                # another order lands across a rounding boundary of a layer's output now and
-                # then, the next layer spreads that one-ulp change over its whole width, and
-                # with full-gain random weights up to 25 layers carry it on: the two versions
-                # end about one bf16 ulp a layer apart in the rms and a few percent apart at
-                # the worst of a million points, so bf16 is held in the max and in the rms
-                # here (the 99.9% quantile is printed as a reading), and sharply with
-                # contracting weights below.
-                scale = max(1.0, float(ref.abs().max()))
-                tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
-                diff = (got - ref).abs()
-                rms = float(diff.square().mean().sqrt())
-                k999 = max(1, int(0.999 * diff.numel()))
-                q999 = float(diff.flatten().kthvalue(k999).values)
-                bad = int((diff > tol).sum()) + int(rms > tol_rms)
-                finite = bool(torch.isfinite(got).all())
-                ragged = (n_rays * ns) % block != 0
-                worst = max(worst, float(diff.max()))
-                print(f"field kernel {name} {dt_name} {n_rays} rays x {ns} samples "
-                      f"(block {block} rows, ragged {ragged}): max|kernel-plain| rgb "
-                      f"{float(diff[:, :3].max()):.3e} sigma {float(diff[:, 3].max()):.3e} "
-                      f"rms {rms:.3e} 99.9% {q999:.3e} (tol max {tol:.3e} rms {tol_rms:.3e} = "
-                      f"{FIELD_TOL[dt_name]} "
-                      f"x max(1, max|plain| {float(ref.abs().max()):.3f})), outside tol {bad}, "
-                      f"finite {finite}",
-                      flush=True)
-                if bad or not finite or got.shape != (n_rays * ns, 4):
-                    fail(failures, f"field kernel {name} {dt_name} disagrees with its plain version")
-            if dt == torch.bfloat16:
-                # the sharp bf16 check, at the packet shape of the main path: weights
-                # x 0.4 contract, so a rounding flip dies out instead of growing through
-                # the layers, and one wrong tile, swizzled chunk or accumulator lane stands out
-                small = map_tree(lambda w: w * CONTRACT, params)
-                fused_c = fk.pack_fused_params(small, fold_conditioning(small, *codes), cfg)
-                got, ref, _ = both(fused_c, pe, dirf * CONTRACT, cfg, n_samples)
-                diff = (got - ref).abs()
-                bad = int((diff > CONTRACT_ATOL).sum())
-                print(f"field kernel {name} {dt_name} {n_time} rays x {n_samples} samples, "
-                      f"weights x {CONTRACT}: max|kernel-plain| rgb {float(diff[:, :3].max()):.3e} "
-                      f"sigma {float(diff[:, 3].max()):.3e} (atol {CONTRACT_ATOL}; max|plain| "
-                      f"{float(ref.abs().max()):.3f}), outside tol {bad}", flush=True)
-                if bad or not bool(torch.isfinite(got).all()) or float(ref.abs().max()) < 0.05:
-                    fail(failures, f"field kernel {name} bf16 with contracting weights disagrees "
-                                   f"with its plain version")
-                del small, fused_c, got, ref, diff
-            # timed at the last (packet) shape; the plain version's time is the
-            # comparison run above (it repeats the kernel's arithmetic in f32 matmuls)
-            with torch.no_grad():
-                slow = name == "fine"
-                ms = cuda_ms(lambda: fk.fused_field_apply(fused, pe, dirf, cfg, n_samples),
-                             iters=2 if slow else 10, warmup=1)
-            n_rows = n_time * n_samples
-            esize = 2 if dt == torch.bfloat16 else 4
-            ops_count = n_rows * field_flops_per_point(cfg, n_layers)
-            t_ops = ops_count / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3
-            w_bytes = field_weight_bytes(cfg, n_layers, esize)
-            t_bytes = (field_io_bytes(cfg, n_rows, n_time) + w_bytes) / PEAK_BYTES * 1e3
-            # what the design's weight traffic (every CTA streams the whole stack once)
-            # would take out of device memory. Not a floor: CTAs in flight walk the stack
-            # together and mostly hit L2, so the kernel may run under it
-            t_stream = -(-n_rows // block) * w_bytes / PEAK_BYTES * 1e3
-            bound = max(t_ops, t_bytes)
-            rows[(name, dt_name)] = {
-                "ms": ms, "plain_ms": ref_time, "bound_ms": bound,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "max_abs_err": worst, "rays": n_time, "samples": n_samples,
-                "block_rows": block}
-            print(f"field kernel {name} {dt_name}: {ms:.3f} ms a launch of {n_time} rays x "
-                  f"{n_samples} samples (plain PyTorch {ref_time:.3f} ms); operations bound "
-                  f"{t_ops:.3f} ms ({ops_count / 1e12:.3f} TFLOP), bytes-once bound "
-                  f"{t_bytes:.4f} ms; this design's weight traffic {t_stream:.3f} ms "
-                  f"({-(-n_rows // block)} CTAs x {w_bytes / 1e6:.2f} MB at device-memory "
-                  f"rate, not a floor: the stream mostly hits L2); {bound / ms:.1%} of bound",
-                  flush=True)
+            for n_rays, ns in RAGGED + ((333, n_samples - 1),):
+                pe, dirf = field_inputs(cfg, w_dirs, n_rays, ns, 5, dev)
+                worst = max(worst, hold(name, dt_name, fused, pe, dirf, cfg, n_rays, ns, block)[0])
+            # the timed shapes: the teacher's packet, and for the fine field the two
+            # shapes of this slice (f32 runs FFMA: the fine field's take a part of them)
+            part = 1 if (dt == torch.bfloat16 or name == "coarse") else 8
+            timed = [("packet", PACKET // part, n_samples)]
+            if name == "fine":
+                timed += [(label, n // part, ns) for label, (n, ns) in SLICE_SHAPES.items()]
+            for label, n_rays, ns in timed:
+                if ns == 1:   # distillation: points anywhere in the box, a ray each
+                    pe, dirf = point_inputs(cfg, w_dirs, n_rays, 6, dev)
+                else:
+                    pe, dirf = field_inputs(cfg, w_dirs, n_rays, ns, 5, dev)
+                err, ref_time = hold(name, dt_name, fused, pe, dirf, cfg, n_rays, ns, block)
+                if dt == torch.bfloat16:
+                    hold_sharp(name, params, codes, cfg, pe, dirf, n_rays, ns)
+                # the plain version's time is the comparison run above (it repeats the
+                # kernel's arithmetic in f32 matmuls)
+                n_rows = n_rays * ns
+                esize = 2 if dt == torch.bfloat16 else 4
+                ops_count = n_rows * field_flops_per_point(cfg, n_layers)
+                t_ops = ops_count / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3
+                # about 0.2 s of launches a shape, reckoned at 30% of the peak
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
+                                 iters=max(2, min(20, int(60.0 / t_ops))), warmup=1)
+                w_bytes = field_weight_bytes(cfg, n_layers, esize)
+                t_bytes = (field_io_bytes(cfg, n_rows, n_rays) + w_bytes) / PEAK_BYTES * 1e3
+                # what the design's weight traffic (every CTA streams the whole stack once)
+                # would take out of device memory. Not a floor: CTAs in flight walk the
+                # stack together and mostly hit L2, so the kernel may run under it
+                t_stream = -(-n_rows // block) * w_bytes / PEAK_BYTES * 1e3
+                bound = max(t_ops, t_bytes)
+                key = (name, dt_name) if label == "packet" else (name, dt_name, label)
+                rows[key] = {
+                    "ms": ms, "plain_ms": ref_time, "bound_ms": bound,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    # the packet's entry also covers the ragged checks before it
+                    "max_abs_err": max(worst, err) if label == "packet" else err,
+                    "rays": n_rays, "samples": ns,
+                    "block_rows": block}
+                print(f"field kernel {name} {dt_name} ({label}): {ms:.3f} ms a launch of "
+                      f"{n_rays} rays x {ns} samples (plain PyTorch {ref_time:.3f} ms); "
+                      f"operations bound {t_ops:.3f} ms ({ops_count / 1e12:.3f} TFLOP), "
+                      f"bytes-once bound {t_bytes:.4f} ms; this design's weight traffic "
+                      f"{t_stream:.3f} ms ({-(-n_rows // block)} CTAs x {w_bytes / 1e6:.2f} MB "
+                      f"at device-memory rate, not a floor: the stream mostly hits L2); "
+                      f"{bound / ms:.1%} of bound", flush=True)
     return rows
 
 
@@ -719,12 +781,13 @@ def encoder_flops(spec):
     return ops + 2 * (flat * 512 + 512 * spec.tex_dim + 3 * spec.tex_dim ** 2)
 
 
-def train_phase(failures, card, dev):
-    """Training at full width through the port's entry points: a 512^2
-    FaceScape-shaped fixture (JPEG UV maps read by the port's decoder), the
-    run_train CLI on configs/exp_mofanerf.txt with a checkpoint mid-run, a
-    resumed run, run_render from the last checkpoint; then one small f32 step
-    on the card against the CPU, and the full-width step timed and profiled."""
+def train_phase(failures, card, dev, tmp):
+    """Training at full width through the port's entry points, in the work
+    directory `tmp`: a 512^2 FaceScape-shaped fixture (JPEG UV maps read by the
+    port's decoder), the run_train CLI on configs/exp_mofanerf.txt keeping its
+    occupancy grid, with a checkpoint mid-run, a resumed run, run_render from
+    the last checkpoint; then one small f32 step on the card against the CPU.
+    Returns what the step timing and the distillation phase take on from it."""
     import torch
 
     from mofanerf_tpu_torch.bridge import map_tree
@@ -737,6 +800,9 @@ def train_phase(failures, card, dev):
     from mofanerf_tpu_torch.models.field import FieldConfig
     from mofanerf_tpu_torch.ops import field_kernel as fk
     from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.ops.composite import sigma_act
+    from mofanerf_tpu_torch.ops.occupancy import (OccupancyGrid, dilate_occupancy, load_grid,
+                                                  probe_density)
     from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, RenderConfig, encode_texture,
                                                     exp_code_for, prepare_conditioning)
     from mofanerf_tpu_torch.train import loop, state as st
@@ -746,107 +812,129 @@ def train_phase(failures, card, dev):
 
     config = os.path.join(REPO, "configs", "exp_mofanerf.txt")
     n_first, n_total = TRAIN_STEPS
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        data = os.path.join(tmp, "data")
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    make_synthetic_dataset(data, n_ids=2, n_train=3, n_test=2, hw=TRAIN_SIDE, seed=0)
+    print(f"train: fixture of 2 identities, {TRAIN_SIDE}x{TRAIN_SIDE} PNG frames and JPEG UV "
+          f"maps written in {time.perf_counter() - t0:.2f} s", flush=True)
+    # the host's JPEG decode of one UV map: the fixture's (uniform noise, the most
+    # coefficients a block) and a smooth one (nearer a face texture)
+    uv_path = os.path.join(data, "uv", "0", "1_neutral.jpg")
+    y, x = np.mgrid[:TRAIN_SIDE, :TRAIN_SIDE]
+    smooth = np.clip(np.stack([128 + 100 * np.sin(x / 37.0 + y / 53.0),
+                               128 + 90 * np.cos(x / 29.0 - y / 61.0),
+                               (x + y) / 4.0], -1), 0, 255).astype(np.uint8)
+    smooth_path = os.path.join(tmp, "smooth.jpg")
+    image_io.write_jpeg(smooth_path, smooth)
+    decode_s = {}
+    for name, path in (("noise", uv_path), ("smooth", smooth_path)):
         t0 = time.perf_counter()
-        make_synthetic_dataset(data, n_ids=2, n_train=3, n_test=2, hw=TRAIN_SIDE, seed=0)
-        print(f"train: fixture of 2 identities, {TRAIN_SIDE}x{TRAIN_SIDE} PNG frames and JPEG UV "
-              f"maps written in {time.perf_counter() - t0:.2f} s", flush=True)
-        # the host's JPEG decode of one UV map: the fixture's (uniform noise, the most
-        # coefficients a block) and a smooth one (nearer a face texture)
-        uv_path = os.path.join(data, "uv", "0", "1_neutral.jpg")
-        y, x = np.mgrid[:TRAIN_SIDE, :TRAIN_SIDE]
-        smooth = np.clip(np.stack([128 + 100 * np.sin(x / 37.0 + y / 53.0),
-                                   128 + 90 * np.cos(x / 29.0 - y / 61.0),
-                                   (x + y) / 4.0], -1), 0, 255).astype(np.uint8)
-        smooth_path = os.path.join(tmp, "smooth.jpg")
-        image_io.write_jpeg(smooth_path, smooth)
-        decode_s = {}
-        for name, path in (("noise", uv_path), ("smooth", smooth_path)):
-            t0 = time.perf_counter()
-            image_io.imread(path)
-            decode_s[name] = time.perf_counter() - t0
-        scale = (4096 / TRAIN_SIDE) ** 2
-        print(f"train: JPEG decode of one {TRAIN_SIDE}^2 UV map on the host (pure-Python Huffman "
-              f"stage): noise {decode_s['noise'] * 1e3:.1f} ms, smooth "
-              f"{decode_s['smooth'] * 1e3:.1f} ms; scaled by pixels to a 4096^2 map "
-              f"x{scale:.0f}: {decode_s['noise'] * scale:.1f} s and "
-              f"{decode_s['smooth'] * scale:.1f} s", flush=True)
+        image_io.imread(path)
+        decode_s[name] = time.perf_counter() - t0
+    scale = (4096 / TRAIN_SIDE) ** 2
+    print(f"train: JPEG decode of one {TRAIN_SIDE}^2 UV map on the host (pure-Python Huffman "
+          f"stage): noise {decode_s['noise'] * 1e3:.1f} ms, smooth "
+          f"{decode_s['smooth'] * 1e3:.1f} ms; scaled by pixels to a 4096^2 map "
+          f"x{scale:.0f}: {decode_s['noise'] * scale:.1f} s and "
+          f"{decode_s['smooth'] * scale:.1f} s", flush=True)
 
-        logs = os.path.join(tmp, "logs")
-        flags = ["--config", config, "--i_grid", "0", "--expname", "smoke", "--basedir", logs,
-                 "--datadir", data, "--uvdir", os.path.join(data, "uv"),
-                 "--shape_codes_path", os.path.join(data, "factors_id.npy"),
-                 "--landmarks_path", os.path.join(data, "landmarks.npy"), "--person_num", "2",
-                 "--i_print", "1", "--i_weights", str(n_first // 2), "--i_testset", str(n_first),
-                 "--i_video", str(n_total), "--render_factor", str(TRAIN_ORBIT_FACTOR),
-                 "--device", str(dev)]
-        cfg = load_config(flags)
-        spec = cfg.model_spec()
-        H = TRAIN_SIDE
-        frame_packets = lambda n: -(-n // min(spec.render.packet_size, n))
-        expected = 2 * (n_total // n_first * frame_packets((H // 2) ** 2)    # held-out images
-                        + 40 * frame_packets((H // TRAIN_ORBIT_FACTOR) ** 2)   # the orbit
-                        + 2 * frame_packets((512 // 2) ** 2))              # run_render, 2 views
-        # the starting point: a seeded model whose alpha heads are rescaled to give both
-        # fields structure over the first frame's conditioning (a seeded ReLU field is
-        # mostly empty or fog, and an empty field gets no gradient), saved as step 0
-        init = st.create_train_state(torch.Generator().manual_seed(0), spec, cfg.lrate,
-                                     cfg.lrate_decay, device=dev)
-        uv = torch.from_numpy(read_image(uv_path, is_uvmap=True, uv_size=spec.uv_size)).to(dev)
-        with torch.no_grad():
-            cond = prepare_conditioning(
-                init.params, spec, torch.from_numpy(load_shape_codes(
-                    os.path.join(data, "factors_id.npy"))[0]).to(dev),
-                exp_code_for(init.params, 0), encode_texture(init.params, spec, uv))
-        probe_o, probe_d = kernel_rays(2048, 11, dev)
-        probe = probe_o[:, None, :] + probe_d[:, None, :] * torch.linspace(
-            8.0, 26.0, 16, device=dev)[:, None]
-        for name in ("coarse", "fine"):
-            fcfg = getattr(spec, name)
-            shape_density(init.params[name], fcfg, getattr(cond, name),
-                          fourier_embed(probe.reshape(-1, 3), fcfg.multires))
-        save_checkpoint(os.path.join(logs, "smoke", "checkpoints"), init, 0)
+    logs = os.path.join(tmp, "logs")
+    # the config's grid upkeep, its interval cut so that the runs update the grid
+    flags = ["--config", config, "--i_grid", str(TRAIN_GRID_EVERY), "--grid_warmup",
+             str(TRAIN_GRID_EVERY), "--expname", "smoke", "--basedir", logs,
+             "--datadir", data, "--uvdir", os.path.join(data, "uv"),
+             "--shape_codes_path", os.path.join(data, "factors_id.npy"),
+             "--landmarks_path", os.path.join(data, "landmarks.npy"), "--person_num", "2",
+             "--i_print", "1", "--i_weights", str(n_first // 2), "--i_testset", str(n_first),
+             "--i_video", str(n_total), "--render_factor", str(TRAIN_ORBIT_FACTOR),
+             "--device", str(dev)]
+    cfg = load_config(flags)
+    spec = cfg.model_spec()
+    H = TRAIN_SIDE
+    frame_packets = lambda n: -(-n // min(spec.render.packet_size, n))
+    expected = 2 * (n_total // n_first * frame_packets((H // 2) ** 2)    # held-out images
+                    + 40 * frame_packets((H // TRAIN_ORBIT_FACTOR) ** 2)   # the orbit
+                    + 2 * frame_packets((512 // 2) ** 2))              # run_render, 2 views
+    # the starting point: a seeded model whose alpha heads are rescaled to give both
+    # fields structure over the first frame's conditioning (a seeded ReLU field is
+    # mostly empty or fog, and an empty field gets no gradient), saved as step 0
+    init = st.create_train_state(torch.Generator().manual_seed(0), spec, cfg.lrate,
+                                 cfg.lrate_decay, device=dev)
+    uv = torch.from_numpy(read_image(uv_path, is_uvmap=True, uv_size=spec.uv_size)).to(dev)
+    with torch.no_grad():
+        cond = prepare_conditioning(
+            init.params, spec, torch.from_numpy(load_shape_codes(
+                os.path.join(data, "factors_id.npy"))[0]).to(dev),
+            exp_code_for(init.params, 0), encode_texture(init.params, spec, uv))
+    probe_o, probe_d = kernel_rays(2048, 11, dev)
+    probe = probe_o[:, None, :] + probe_d[:, None, :] * torch.linspace(
+        8.0, 26.0, 16, device=dev)[:, None]
+    for name in ("coarse", "fine"):
+        fcfg = getattr(spec, name)
+        shape_density(init.params[name], fcfg, getattr(cond, name),
+                      fourier_embed(probe.reshape(-1, 3), fcfg.multires))
+    save_checkpoint(os.path.join(logs, "smoke", "checkpoints"), init, 0)
+    # the grid's density threshold: this shaped seeded field's density is high-frequency
+    # noise, so at the config's 1.0 (and at its 90% quantile) the dilated grid marks nearly
+    # every cell and run_render --fast would re-probe instead of using it. The threshold is
+    # the lowest quantile of the step-0 coarse density at the grid's cells whose dilated
+    # grid keeps at most GRID_STEP0_SHARE of them, so that the kept grid stays sparse, as a
+    # trained face's is
+    G = cfg.grid_resolution
+    cells = OccupancyGrid(torch.zeros((G, G, G), dtype=torch.bool, device=dev),
+                          torch.full((3,), -5.0, device=dev), torch.full((3,), 5.0, device=dev))
+    density = sigma_act(spec.render.sigma_activation)(
+        probe_density(init.params["coarse"], spec.coarse, cond.coarse, cells))
+    for q in GRID_QUANTILES:
+        grid_threshold = max(cfg.grid_density_threshold, float(torch.quantile(density, q)))
+        share = float(dilate_occupancy((density > grid_threshold).reshape(G, G, G))
+                      .float().mean())
+        if share <= GRID_STEP0_SHARE:
+            break
+    flags += ["--grid_density_threshold", repr(grid_threshold)]
+    print(f"train: grid density threshold {grid_threshold:.4g} (the {q:.1%} quantile of the "
+          f"step-0 coarse field at the {G}^3 cells; its dilated grid holds {share:.2%} of them)",
+          flush=True)
 
-        # ---- the main path: counts zeroed just before, read just after
-        torch.cuda.synchronize()
-        fk.launch_count = 0
-        t0 = time.perf_counter()
-        run_train.main(flags + ["--n_iters", str(n_first)])
-        t_first = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        final = run_train.main(flags + ["--n_iters", str(n_total)])
-        t_second = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        frames = run_render.main(["--out_dir", os.path.join(tmp, "orbit"), "--n_views", "2",
-                                  "--render_factor", "2", "--device", str(dev)]
-                                 + flags[:flags.index("--i_print")])
-        torch.cuda.synchronize()
-        t_render = time.perf_counter() - t0
-        launches = fk.launch_count
+    # ---- the main path: counts zeroed just before, read just after
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    t0 = time.perf_counter()
+    run_train.main(flags + ["--n_iters", str(n_first)])
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final = run_train.main(flags + ["--n_iters", str(n_total)])
+    t_second = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = run_render.main(["--out_dir", os.path.join(tmp, "orbit"), "--n_views", "2",
+                              "--render_factor", "2", "--device", str(dev)]
+                             + flags[:flags.index("--i_print")])
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    launches = fk.launch_count
 
-        exp = os.path.join(logs, "smoke")
-        log = open(os.path.join(exp, "train_log.txt")).read()
-        steps = [line.split() for line in log.splitlines() if line.startswith("Iteration")]
-        losses = [float(f[3]) for f in steps]
-        oks = [int(f[7]) for f in steps]
-        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
-        tests = [f for n in range(n_first, n_total + 1, n_first)
-                 for f in os.listdir(os.path.join(exp, f"testset_{n:06d}"))]
-        orbit = os.listdir(os.path.join(exp, f"video_{n_total:06d}"))
+    exp = os.path.join(logs, "smoke")
+    log = open(os.path.join(exp, "train_log.txt")).read()
+    steps = [line.split() for line in log.splitlines() if line.startswith("Iteration")]
+    losses = [float(f[3]) for f in steps]
+    oks = [int(f[7]) for f in steps]
+    ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+    tests = [f for n in range(n_first, n_total + 1, n_first)
+             for f in os.listdir(os.path.join(exp, f"testset_{n:06d}"))]
+    orbit = os.listdir(os.path.join(exp, f"video_{n_total:06d}"))
 
-        # batches for the timed steps, assembled as the loop assembles them
-        ds = load_facescape_data(data, valid_persons(data), load_shape_codes(
-            os.path.join(data, "factors_id.npy")), uvdir=os.path.join(data, "uv"))
-        hh, ww, focal = ds.hwf
-        K = np.array([[focal, 0, 0.5 * ww], [0, focal, 0.5 * hh], [0, 0, 1]], np.float32)
-        sampler = TrainRaySampler(np.load(os.path.join(data, "landmarks.npy")) / 50.0, hh, ww,
-                                  lm_frac=cfg.lm_frac)
-        rng, uv_cache = np.random.default_rng(7), {}
-        t0 = time.perf_counter()
-        batches = [loop.make_batch(n_total + i, cfg, spec, ds, K, sampler, rng, uv_cache, dev)
-                   for i in range(2 + TIMED_STEPS + PROFILED_STEPS)]
-        t_batch = (time.perf_counter() - t0) / len(batches)
+    # batches for the timed steps, assembled as the loop assembles them
+    ds = load_facescape_data(data, valid_persons(data), load_shape_codes(
+        os.path.join(data, "factors_id.npy")), uvdir=os.path.join(data, "uv"))
+    hh, ww, focal = ds.hwf
+    K = np.array([[focal, 0, 0.5 * ww], [0, focal, 0.5 * hh], [0, 0, 1]], np.float32)
+    sampler = TrainRaySampler(np.load(os.path.join(data, "landmarks.npy")) / 50.0, hh, ww,
+                              lm_frac=cfg.lm_frac)
+    rng, uv_cache = np.random.default_rng(7), {}
+    t0 = time.perf_counter()
+    batches = [loop.make_batch(n_total + i, cfg, spec, ds, K, sampler, rng, uv_cache, dev)
+               for i in range(2 + TIMED_STEPS + PROFILED_STEPS)]
+    t_batch = (time.perf_counter() - t0) / len(batches)
     print(f"train: run_train {n_first} steps from the step-0 checkpoint in {t_first:.2f} s, "
           f"resumed to {n_total} in {t_second:.2f} s (both with start-up, renders and saves); "
           f"run_render 2 views at 256^2 from the checkpoint in {t_render:.2f} s; field kernel "
@@ -876,6 +964,23 @@ def train_phase(failures, card, dev):
             or frames.min() < 0.0 or frames.max() > 1.0 + 1e-5):
         fail(failures, f"run_render from the checkpoint: shape {frames.shape}, range "
                        f"[{np.nanmin(frames)}, {np.nanmax(frames)}]")
+    # the occupancy grid the loop kept: updated every TRAIN_GRID_EVERY steps, saved
+    # beside the checkpoints, resumed by the second run
+    grid_path = os.path.join(exp, "checkpoints", "occupancy_grid.npz")
+    n_updates = n_total // TRAIN_GRID_EVERY
+    grid, ema = load_grid(grid_path, device=dev) if os.path.exists(grid_path) else (None, None)
+    if grid is None or ema is None:
+        fail(failures, f"training wrote no occupancy grid with its EMA at {grid_path}")
+    else:
+        occupied = float(grid.occ.float().mean())
+        print(f"train: occupancy grid {tuple(grid.occ.shape)} written and reloaded, "
+              f"{occupied:.2%} of cells occupied after {n_updates} EMA updates of the coarse "
+              f"field (threshold {grid_threshold:.4g}, decay {cfg.grid_ema_decay}); "
+              f"density EMA max {float(ema.max()):.3g}", flush=True)
+        if "resumed occupancy grid" not in log or not bool(torch.isfinite(ema).all()):
+            fail(failures, "training: the resumed run did not resume the occupancy grid")
+        if not float(ema.max()) > 0.0:
+            fail(failures, "training: the occupancy grid's density EMA stayed at 0")
 
     # one f32 step on the card against the same step on the CPU, at a small size
     fcfg = FieldConfig(depth=6, width=64, multires=4, multires_views=2)
@@ -924,7 +1029,252 @@ def train_phase(failures, card, dev):
 
     print(f"train: host batch assembly (PNG read, sampling, rays, copies) "
           f"{t_batch * 1e3:.1f} ms a batch, outside the timed steps", flush=True)
-    return launches, final, cfg, batches
+    render_flags = flags[:flags.index("--i_print")]
+    return launches, final, cfg, batches, render_flags
+
+
+class _Tee:
+    """Standard output that is also kept, so that a phase can read what a CLI
+    printed (its loss lines and timings)."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_cli(argv):
+    """run_render.main(argv): (frames, what it printed)."""
+    import contextlib
+
+    from mofanerf_tpu_torch.cli import run_render
+
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        frames = run_render.main(argv)
+    return frames, tee.text()
+
+
+def profile_distill_steps(card, dev, spec, ckpt_dir, n_timed=DISTILL_TIMED_STEPS,
+                          n_prof=DISTILL_PROFILED_STEPS):
+    """Where a default distillation step's time goes, outside the counted path:
+    the teacher from the checkpoint, `distill_step` timed over n_timed steps
+    after warm-up (host clock, synchronised at both ends), then n_prof steps
+    under torch.profiler (the card's busy share, the field kernel's share,
+    launches a step, the host's operations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mofanerf_tpu_torch.render.renderer import (exp_code_for, init_model_params,
+                                                    prepare_conditioning)
+    from mofanerf_tpu_torch.train import distill as td
+    from mofanerf_tpu_torch.train.checkpoint import restore_checkpoint
+
+    params = restore_checkpoint(ckpt_dir, init_model_params(torch.Generator().manual_seed(0),
+                                                            spec, device=dev))
+    with torch.no_grad():
+        cond = prepare_conditioning(params, spec, torch.zeros(spec.shape_dim, device=dev),
+                                    exp_code_for(params, 0), torch.zeros(spec.tex_dim, device=dev))
+    dcfg = td.DistillConfig()
+    scfg = dcfg.student_config(spec.fine)
+    state, tx = td.init_student(torch.Generator().manual_seed(0), scfg, dcfg.lr, dev)
+    teacher = td.pack_teacher(params["fine"], spec.fine, cond.fine)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = td.distill_step(state, tx, teacher, dcfg, scfg, generator=gen)
+        return m["loss"]
+
+    steps(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(n_timed)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(n_prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+              for e in kernels}
+    busy = sum(dev_us.values()) / 1e6
+    n_launch = sum(e.count for e in kernels) / n_prof
+    field = sum(v for k, v in dev_us.items() if "field" in k.lower()) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"distill step: {ms:.3f} ms a step (mean of {n_timed} after 5 warm-up, host clock); "
+          f"profiled {n_prof} steps: {wall / n_prof * 1e3:.3f} ms a step under the profiler, "
+          f"card busy {busy / n_prof * 1e3:.3f} ms a step ({busy / wall:.1%}), the field kernel "
+          f"{field / n_prof * 1e3:.3f} ms of it, in {n_launch:.0f} kernel launches a step; top: "
+          + "; ".join(f"{k[:40]} {v / n_prof / 1e3:.3f} ms" for k, v in top)
+          + "; host (self ms a step, calls): "
+          + "; ".join(f"{e.key} {e.self_cpu_time_total / n_prof / 1e3:.3f} "
+                      f"({e.count / n_prof:.0f})" for e in host) + f" on {card}", flush=True)
+    return {"ms": ms, "profiled_ms": wall / n_prof * 1e3, "busy_ms": busy / n_prof * 1e3,
+            "field_kernel_ms": field / n_prof * 1e3, "launches": n_launch}
+
+
+def distill_phase(failures, card, dev, render_flags, tmp, teacher_sec):
+    """This slice's path: from the training phase's checkpoint directory (its
+    `.pt` and the occupancy grid it kept), the run_render CLI distils a student
+    at the defaults (2000 steps of 32768 points, bf16 4x128; the teacher's
+    queries through the field kernel), saves it and serves it from the file
+    through the serving kernel; distils and serves an expression rig and a
+    two-avatar morph at fewer steps; renders --fast through the grid; and reads
+    the PSNR of the served and the fast frame against the teacher's."""
+    import re
+
+    import torch
+
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops.bounds import ray_aabb_interval
+    from mofanerf_tpu_torch.ops.occupancy import load_grid
+    from mofanerf_tpu_torch.ops.rays import get_rays, pose_spherical
+    from mofanerf_tpu_torch.ops.sweep import bucket_fraction
+    from mofanerf_tpu_torch.train.distill import DistillConfig, load_student
+    from mofanerf_tpu_torch.utils.metrics import img2mse, mse2psnr
+
+    spec = load_config(render_flags).model_spec()
+    ckpt_dir = os.path.join(render_flags[render_flags.index("--basedir") + 1],
+                            render_flags[render_flags.index("--expname") + 1], "checkpoints")
+    side = 512   # render_factor 1
+    views = ["--n_views", "2", "--render_factor", "1", "--device", str(dev)]
+    serve_packets = 2 * n_packets(side * side, 16384)   # run_render's packet at 512^2
+    out = {"launches": {}}
+
+    def count(name, argv, field_want, serve_want):
+        """One CLI call with both kernels' counts zeroed just before it and read
+        just after: (frames, printed text); fails unless the counts are the
+        expected ones."""
+        torch.cuda.synchronize()
+        fk.launch_count, sk.launch_count = 0, 0
+        t0 = time.perf_counter()
+        frames, text = run_cli(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = (fk.launch_count, sk.launch_count)
+        out["launches"][name] = {"field": got[0], "serve": got[1]}
+        print(f"distill: {name}: {seconds:.2f} s for the call; field kernel launches {got[0]} "
+              f"(expected {'some' if field_want is None else field_want}), serving kernel "
+              f"launches {got[1]} (expected "
+              f"{serve_want})", flush=True)
+        if field_want is None:   # unknown in advance: at least one
+            field_want = max(got[0], 1)
+        if got != (field_want, serve_want):
+            fail(failures, f"distill {name}: kernel launches {got}, expected "
+                           f"{(field_want, serve_want)}")
+        if (frames.shape[1:] != (side, side, 3) or not np.isfinite(frames).all()
+                or frames.min() < 0.0 or frames.max() > 1.0 + 1e-5):
+            fail(failures, f"distill {name}: frames {frames.shape}, range "
+                           f"[{np.nanmin(frames)}, {np.nanmax(frames)}]")
+        return frames, text
+
+    # 1. the default distillation, saved with its provenance, then served from the file
+    dcfg = DistillConfig()
+    art = os.path.join(tmp, "student.npz")
+    argv = ["--out_dir", os.path.join(tmp, "student"), "--distill", "--student_path", art] + views
+    frames, text = count("--distill", argv + render_flags, dcfg.n_steps, serve_packets)
+    losses = [float(v) for v in re.findall(r"\[DISTILL\] step \d+/\d+ loss (\S+)", text)]
+    m = re.search(r"distilled (\d+) steps in (\S+) s", text)
+    seconds = float(m.group(2)) if m else float("nan")
+    ms_step = seconds / dcfg.n_steps * 1e3
+    print(f"distill: {dcfg.n_steps} steps x {dcfg.batch} points (bf16 {dcfg.depth}x{dcfg.width} "
+          f"student, teacher fine {spec.fine.depth}x{spec.fine.width} bf16 through the field "
+          f"kernel) in {seconds:.3f} s: {dcfg.n_steps / seconds:.2f} steps/s, {ms_step:.3f} ms a "
+          f"step; loss at the log windows {losses} on {card}", flush=True)
+    if len(losses) != 4 or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(failures, f"distillation loss did not fall or is not finite: {losses}")
+    _, scfg, prov = load_student(art, with_provenance=True, device=dev)
+    grid, _ = load_grid(os.path.join(ckpt_dir, "occupancy_grid.npz"), device=dev)
+    print(f"distill: artifact {os.path.getsize(art)} bytes, cond_dim {scfg.cond_dim}, "
+          f"provenance {prov}", flush=True)
+    if not all(k in prov for k in ("person", "expression", "aabb_min", "aabb_max", "near", "far")):
+        fail(failures, f"the artifact's provenance lacks a key: {prov}")
+    served, _ = count("--distill from the file", argv + render_flags, 0, serve_packets)
+    diff = float(np.abs(served - frames).max())
+    print(f"distill: served from the file, max |diff| to the distilling call's frames {diff:.3e}",
+          flush=True)
+    if diff > 1e-6:
+        fail(failures, f"the artifact served from the file gives other frames ({diff})")
+
+    out["step"] = profile_distill_steps(card, dev, spec, ckpt_dir)
+
+    # 2. an expression rig and a two-avatar morph, each distilled, saved and served again
+    n_short = DISTILL_SHORT_STEPS
+    for name, flags in (("--distill_cond", ["--distill_cond", "--rig_expressions", "0,9,14"]),
+                        ("--distill_avatars", ["--distill_avatars", "0,1"])):
+        path = os.path.join(tmp, name.strip("-") + ".npz")
+        argv = (["--out_dir", os.path.join(tmp, name.strip("-")), "--student_path", path,
+                 "--distill_steps", str(n_short)] + flags + views + render_flags)
+        first, text = count(name, argv, n_short, serve_packets)
+        again, _ = count(name + " from the file", argv, 0, serve_packets)
+        cond_dim = load_student(path, device=dev)[1].cond_dim
+        moved = float(np.abs(first[0] - first[-1]).max())
+        logged = re.findall(r"step \d+/\d+ loss (\S+)", text)
+        print(f"distill: {name} {n_short} steps, cond_dim {cond_dim}, loss "
+              f"{logged}; served from the file, max |diff| "
+              f"{float(np.abs(again - first).max()):.3e}; the orbit's first and last frames "
+              f"differ by {moved:.3f}", flush=True)
+        if cond_dim != (30 if name == "--distill_cond" else 80) or not moved > 0.0:
+            fail(failures, f"{name}: cond_dim {cond_dim}, frames moved {moved}")
+        if float(np.abs(again - first).max()) > 1e-6:
+            fail(failures, f"{name}: the artifact served from the file gives other frames")
+
+    # 3. --fast through the maintained grid (re-probed when more than half occupied):
+    # the launches are the packets its sweep keeps after the slab test against the box
+    K = np.array([[1200.0, 0, side / 2], [0, 1200.0, side / 2], [0, 0, 1]], np.float32)
+    occupied = float(grid.occ.float().mean())
+    fast_want = 0
+    for a in np.linspace(-180, 180, 3)[:-1]:
+        o, d = get_rays(side, side, torch.as_tensor(K, device=dev),
+                        torch.as_tensor(pose_spherical(a, 0.0, 16.0)[:3], device=dev))
+        hit = ray_aabb_interval(o.reshape(-1, 3), d.reshape(-1, 3), grid.aabb_min,
+                                grid.aabb_max, spec.render.near, spec.render.far)[2]
+        frac = bucket_fraction(float(hit.float().mean()))
+        n, p = side * side, spec.render.packet_size
+        fast_want += n_packets(n, p, n if frac >= 1.0 else min(-(-int(n * frac) // p) * p, n))
+    fast, text = count("--fast", ["--out_dir", os.path.join(tmp, "fast"), "--fast"] + views
+                       + render_flags, fast_want if occupied <= 0.5 else None, 0)
+    m = re.search(r"rendered 2 fast frames of \d+x\d+ in (\S+) s", text)
+    fast_sec = float(m.group(1)) / 2 if m else float("nan")
+    used = "using training-maintained occupancy grid" in text
+    print(f"distill: --fast {fast_sec:.4f} s a {side}x{side} frame, {side * side / fast_sec:.0f} "
+          f"rays/s (teacher {teacher_sec:.4f} s, {side * side / teacher_sec:.0f} rays/s; "
+          f"{teacher_sec / fast_sec:.2f}x), through the maintained grid {used} ({occupied:.2%} "
+          f"occupied) on {card}", flush=True)
+    if not used and occupied <= 0.5:
+        fail(failures, "--fast did not use the maintained grid")
+
+    # 4. a reading, not a gate: PSNR against the teacher's frame at the orbit's first view
+    teacher, _ = run_cli(["--out_dir", os.path.join(tmp, "teacher"), "--n_views", "1",
+                          "--render_factor", "1", "--device", str(dev)] + render_flags)
+    ref = torch.from_numpy(teacher[0])
+    psnr = {k: float(mse2psnr(img2mse(torch.from_numpy(v[0]), ref)))
+            for k, v in (("student", frames), ("fast", fast))}
+    print(f"distill: PSNR against the teacher's frame (a reading): served student "
+          f"{psnr['student']:.2f} dB, --fast {psnr['fast']:.2f} dB", flush=True)
+    out.update(seconds=seconds, steps_per_s=dcfg.n_steps / seconds, ms_per_step=ms_step,
+               loss_first=losses[0] if losses else None, loss_last=losses[-1] if losses else None,
+               fast_s_per_frame=fast_sec, teacher_s_per_frame=teacher_sec,
+               grid_occupied=occupied, psnr_student_db=psnr["student"],
+               psnr_fast_db=psnr["fast"], card=card)
+    return out
 
 
 def train_step_timing(failures, card, dev, final, cfg, batches):
@@ -1074,24 +1424,38 @@ def main(argv) -> int:
     launches = path_phase(failures, card, dev)
     print(f"path phase (serving): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    field_launches, _ = teacher_path_phase(failures, card, dev, field_rows)
+    field_launches, teacher_sec = teacher_path_phase(failures, card, dev, field_rows)
     print(f"path phase (teacher): {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    train_launches, final, train_cfg, batches = train_phase(failures, card, dev)
-    print(f"path phase (training): {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    step = train_step_timing(failures, card, dev, final, train_cfg, batches)
-    print(f"train step timing: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"train_step": {
-        "ms": step["ms"], "steps_per_s": 1e3 / step["ms"],
-        "rays_per_s": train_cfg.N_rand * 1e3 / step["ms"], "bound_ms": step["bound_ms"],
-        "peak_memory_bytes": step["peak"], "encoder_share": step["enc_share"],
-        "card": card}}), flush=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
+        t0 = time.perf_counter()
+        train_launches, final, train_cfg, batches, render_flags = train_phase(
+            failures, card, dev, work)
+        print(f"path phase (training): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        step = train_step_timing(failures, card, dev, final, train_cfg, batches)
+        print(f"train step timing: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"train_step": {
+            "ms": step["ms"], "steps_per_s": 1e3 / step["ms"],
+            "rays_per_s": train_cfg.N_rand * 1e3 / step["ms"], "bound_ms": step["bound_ms"],
+            "peak_memory_bytes": step["peak"], "encoder_share": step["enc_share"],
+            "card": card}}), flush=True)
+        del final, batches
+        t0 = time.perf_counter()
+        dist = distill_phase(failures, card, dev, render_flags, work, teacher_sec)
+        print(f"path phase (distillation, --fast): {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"distill": dist}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
 
     main_row = rows["bfloat16"]   # the dtype the serving path runs
+    launched = dist["launches"]
+    slice_launches = {   # this slice's paths, by the field kernel's shape
+        "distill": sum(launched[k]["field"] for k in
+                       ("--distill", "--distill_cond", "--distill_avatars")),
+        "fast": launched["--fast"]["field"]}
+    serve_by_path = {"serving": launches,
+                     "distill": sum(v["serve"] for v in launched.values())}
     field_entries = []
     for name, (depth, width, _) in FIELDS.items():
         row = field_rows[(name, "bfloat16")]   # the dtype the teacher path runs
@@ -1113,12 +1477,30 @@ def main(argv) -> int:
             "block_rows": row["block_rows"],
             "f32": field_rows[(name, "float32")],
         })
+    for label, (n_rays, ns) in SLICE_SHAPES.items():
+        row = field_rows[("fine", "bfloat16", label)]
+        field_entries.append({
+            "name": f"fused_field_apply[fine 10x1024, {label} {n_rays}x{ns}]",
+            "route": "cuda",
+            "source": "mofanerf_tpu_torch/csrc/field_kernel.cu",
+            "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
+            "launches": slice_launches[label],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "block_rows": row["block_rows"],
+            "f32": field_rows[("fine", "float32", label)],
+        })
     print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",
         "route": "cuda",
         "source": "mofanerf_tpu_torch/csrc/serve_kernel.cu",
         "replaces": "mofanerf_tpu/ops/pallas_serve.py:221",
-        "launches": launches,
+        "launches": sum(serve_by_path.values()),
+        "launches_by_path": serve_by_path,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

@@ -1,10 +1,11 @@
 """Training CLI (counterpart of mofanerf_tpu/cli/run_train.py):
 
     python -m mofanerf_tpu_torch.cli.run_train --config configs/exp_mofanerf.txt \
-        --i_grid 0 [--device cuda] [--n_iters N] [config flags]
+        [--device cuda] [--n_iters N] [config flags]
 
-Config flags as in mofanerf_tpu_torch/config.py. `--device cpu` trains on
-the CPU (small configs); the default is the card.
+Config flags as in mofanerf_tpu_torch/config.py (`--i_grid 0` turns the
+occupancy grid's upkeep off). `--device cpu` trains on the CPU (small
+configs); the default is the card.
 """
 from __future__ import annotations
 

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mofanerf_tpu_torch.models.field import FieldConfig, apply_field_folded
+from mofanerf_tpu_torch.models.field import (FieldConfig, apply_field_folded, fold_conditioning,
+                                             init_field_params)
 from mofanerf_tpu_torch.ops.embed import embed_dim
 from mofanerf_tpu_torch.utils.device import resolve_device
 
@@ -171,3 +172,27 @@ def point_apply(params, cond, pts_embed, dir_feat, cfg, samples_per_ray=None):
         return apply_student(params, pts_embed, dir_feat, cfg, samples_per_ray)
     return apply_field_folded(params, cond, pts_embed, dir_feat, cfg, samples_per_ray)
 
+
+def _zero_code_cond(params: Params, cfg: FieldConfig) -> Params:
+    dev = params["xyz"]["b"].device
+    zeros = [torch.zeros(n, dtype=torch.float32, device=dev)
+             for n in (cfg.shape_dim, cfg.exp_dim, cfg.tex_dim)]
+    return fold_conditioning(params, *zeros)
+
+
+def init_point_field(generator: torch.Generator, cfg, device="cuda"):
+    """Init either family. Returns (params, cond): cond None for students, the
+    folded zero-code conditioning for a FieldConfig (the field-arch student)."""
+    if isinstance(cfg, StudentConfig):
+        return init_student_params(generator, cfg, device=device), None
+    params = init_field_params(generator, cfg, device=device)
+    return params, _zero_code_cond(params, cfg)
+
+
+def refold_cond(params: Params, cfg):
+    """The zero-code conditioning of a FieldConfig's params, recomputed after
+    an update (the folded biases are functions of the params); None for
+    students."""
+    if isinstance(cfg, StudentConfig):
+        return None
+    return _zero_code_cond(params, cfg)

@@ -131,6 +131,26 @@ def pack_fused_params(params: Params, cond: Params, cfg: FieldConfig) -> FusedPa
         tile_weights(w_pts, w_stack, w_view, cfg))
 
 
+def _cond_rows(cfg: FieldConfig) -> Dict[str, int]:
+    """Rows of `b_stack` that carry a folded conditioning bias: each trunk's L0
+    and the second half of its skip pair."""
+    sigma, rgb = cfg.xyz_depth, cfg.xyz_depth + cfg.depth + 1
+    return {"sigma_b0": sigma, "sigma_bskip": sigma + cfg.skip + 2,
+            "rgb_b0": rgb, "rgb_bskip": rgb + cfg.skip + 2}
+
+
+def rebias_fused_params(fused: FusedParams, cond: Params, cfg: FieldConfig) -> FusedParams:
+    """`fused` for another folded conditioning of the same field: the
+    conditioning enters only `b_pts` and four rows of `b_stack`, so the cast
+    and tiled weights are shared, not made again (distillation draws a new
+    conditioning every step)."""
+    b_stack = fused.b_stack.clone()
+    for key, row in _cond_rows(cfg).items():
+        b_stack[row] = cond[key]
+    return fused._replace(b_stack=b_stack,
+                          b_pts=cond["xyz_b"].to(torch.float32).contiguous())
+
+
 def uses_wgmma(cfg: FieldConfig) -> bool:
     """Whether the CUDA entry point runs the wgmma design for `cfg`: bf16 at
     the teacher's two widths, with an embedding that fits one 64-deep tile

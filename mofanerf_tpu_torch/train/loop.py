@@ -9,9 +9,14 @@ renders a held-out image and the orbit through the inference renderer
 (kernel B1 on the card), as PNGs. Batches are assembled by `make_batch` on
 a prefetch thread while the card runs the previous step.
 
-Not ported yet, and refused naming the ROADMAP item: occupancy-grid
-maintenance (`i_grid > 0`, A6) and the device-resident data path
-(`device_data`, A5).
+With `i_grid > 0` the loop keeps an occupancy grid of the coarse field
+(ops/occupancy.py): every `i_grid` steps, once `grid_warmup` steps have passed, it
+re-probes the density under the step's conditioning into an EMA, and it
+saves the grid as `occupancy_grid.npz` beside every checkpoint; a resumed
+run resumes the grid. `run_render --fast` and distillation read it.
+
+Not ported yet, and refused naming the ROADMAP item: the device-resident
+data path (`device_data`, A5).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from mofanerf_tpu_torch.data.facescape import (FacescapeDataset, load_facescape_
                                                load_shape_codes, read_image, valid_persons)
 from mofanerf_tpu_torch.data.landmarks import TrainRaySampler, anneal_lm_frac
 from mofanerf_tpu_torch.data.prefetch import Prefetcher
+from mofanerf_tpu_torch.ops.occupancy import (OccupancyGrid, load_grid, save_grid,
+                                              update_occupancy_grid)
 from mofanerf_tpu_torch.ops.rays import get_rays_at
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 prepare_conditioning, render_frame, render_path)
@@ -89,10 +96,6 @@ def step_generator(seed: int, i: int, device) -> torch.Generator:
 def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cuda"):
     """Train from cfg; resumes from the newest `.pt` in the experiment's
     checkpoints unless `no_reload`. Returns the final TrainState."""
-    if cfg.i_grid > 0:
-        raise NotImplementedError(
-            f"i_grid={cfg.i_grid}: occupancy-grid maintenance during training is ported "
-            "with the occupancy slice (ROADMAP A6); pass --i_grid 0")
     if cfg.device_data:
         raise NotImplementedError(
             "device_data: the device-resident data path is ported with ROADMAP A5's "
@@ -137,6 +140,25 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
         logger.note("no checkpoint found — FRESH run (step and lr schedule "
                     "start at 0; log below appends to any prior run's)")
 
+    grid, density_ema = None, None
+    grid_path = os.path.join(ckpt_dir, "occupancy_grid.npz")
+    if cfg.i_grid > 0:
+        G = cfg.grid_resolution
+        grid = OccupancyGrid(torch.zeros((G, G, G), dtype=torch.bool, device=dev),
+                             torch.full((3,), -5.0, device=dev), torch.full((3,), 5.0, device=dev))
+        density_ema = torch.zeros(G ** 3, dtype=torch.float32, device=dev)
+        if start > 0 and os.path.exists(grid_path):
+            grid, ema = load_grid(grid_path, device=dev)
+            if ema is not None:
+                density_ema = ema
+            logger.note("resumed occupancy grid")
+
+    def save(step):
+        path = save_checkpoint(ckpt_dir, state, step)
+        if grid is not None:
+            save_grid(grid_path, grid, density_ema)
+        return path
+
     uv_cache: dict = {}
     rng = np.random.default_rng(seed + 1)
     # eval renders draw from their own generator: `rng` is consumed on the
@@ -150,6 +172,9 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
     for i, batch in zip(range(start, n_total), batches):
         state, metrics = train_step(state, batch, step_generator(seed, i, dev), spec, tx)
 
+        if grid is not None and (i + 1) >= cfg.grid_warmup and (i + 1) % cfg.i_grid == 0:
+            grid, density_ema = _update_grid(cfg, spec, state.params, batch, grid, density_ema)
+
         if (i + 1) % cfg.i_print == 0:
             loss, psnr = float(metrics["loss"]), float(metrics["psnr"])
             ok = int(metrics["step_ok"])
@@ -159,7 +184,7 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
             logger.write(i + 1, Loss=loss, PSNR=psnr, step_ok=ok)
 
         if (i + 1) % cfg.i_weights == 0:
-            path = save_checkpoint(ckpt_dir, state, i + 1)
+            path = save(i + 1)
             logger.note(f"checkpoint saved: {path}")
 
         if (i + 1) % cfg.i_testset == 0 and len(ds.i_split[2]) > 0:
@@ -168,9 +193,22 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
         if (i + 1) % cfg.i_video == 0:
             _render_orbit(cfg, spec, state, ds, rng_eval, exp_dir, i + 1, uv_cache, dev)
 
-    save_checkpoint(ckpt_dir, state, n_total)
+    save(n_total)
     logger.note("training finished")
     return state
+
+
+def _update_grid(cfg: Config, spec: MoFaNeRF, params, batch: Batch, grid: OccupancyGrid,
+                 density_ema: torch.Tensor):
+    """One EMA update of the grid from the COARSE field under the batch's
+    conditioning (the fine field is unconstrained off its importance samples)."""
+    with torch.no_grad():
+        tex = encode_texture(params, spec, batch.uv_map)
+        cond = prepare_conditioning(params, spec, batch.shape_code,
+                                    exp_code_for(params, batch.exp_type), tex)
+        return update_occupancy_grid(grid, density_ema, params["coarse"], spec.coarse,
+                                     cond.coarse, cfg.grid_ema_decay,
+                                     cfg.grid_density_threshold, spec.render.sigma_activation)
 
 
 def _frame_cond(spec, state, ds, idx, uv_cache, device):

@@ -59,10 +59,11 @@ def lr_at(step, lrate: float = 5e-5, lrate_decay: int = 250) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Adam:
     """Adam with torch's defaults (betas 0.9 / 0.999, eps 1e-8) on the
-    decaying schedule, as optax.adam computes it."""
+    decaying schedule, as optax.adam computes it; `lrate_decay=None` keeps
+    the rate constant at `lrate`, as `optax.adam(lrate)` (distillation)."""
 
     lrate: float = 5e-5
-    lrate_decay: int = 250
+    lrate_decay: int | None = 250
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
@@ -86,7 +87,9 @@ class Adam:
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t   # f32 on the device: no host round trip
         denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
         upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        upd = torch._foreach_mul(upd, -lr_at(state.count, self.lrate, self.lrate_decay))
+        lr = (self.lrate if self.lrate_decay is None
+              else lr_at(state.count, self.lrate, self.lrate_decay))
+        upd = torch._foreach_mul(upd, -lr)
         return torch._foreach_add(params, upd), mu, nu, count
 
 

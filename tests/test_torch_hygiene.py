@@ -47,6 +47,7 @@ def test_no_jax_imports_in_source(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "mofanerf_tpu_torch.ops.serve_kernel" in mods and len(mods) > 15
+    assert {"mofanerf_tpu_torch.train.distill", "mofanerf_tpu_torch.ops.occupancy"} <= set(mods)
     code = f"""
 import sys
 
@@ -113,12 +114,18 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
     from mofanerf_tpu_torch.cli import run_train
     from mofanerf_tpu_torch.config import Config
     from mofanerf_tpu_torch.render.renderer import MoFaNeRF, init_model_params
+    from mofanerf_tpu_torch.models.student import StudentConfig, init_point_field
+    from mofanerf_tpu_torch.ops.occupancy import OccupancyGrid, load_grid, save_grid
+    from mofanerf_tpu_torch.train.distill import init_student
     from mofanerf_tpu_torch.train.loop import train
     from mofanerf_tpu_torch.train.state import create_train_state
 
     cfg = FieldConfig(depth=6, width=64)
     spec = MoFaNeRF(coarse=cfg, fine=cfg, uv_size=128)
     gen = torch.Generator().manual_seed(0)
+    grid_path = str(tmp_path / "grid.npz")
+    save_grid(grid_path, OccupancyGrid(torch.zeros((2, 2, 2), dtype=torch.bool),
+                                       torch.full((3,), -1.0), torch.full((3,), 1.0)))
     on_cpu = bridge.to_numpy(init_model_params(gen, spec, device="cpu"))
     flax_like = {"params": {"mu": {"kernel": np.zeros((512, 256), np.float32),
                                    "bias": np.zeros(256, np.float32)}}}
@@ -134,9 +141,11 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
         lambda: bridge.field_to_torch(on_cpu["coarse"], cfg),
         lambda: run_render.main(teacher_argv),
         lambda: create_train_state(gen, spec),
-        lambda: train(Config(basedir=str(tmp_path / "logs"), i_grid=0), n_iters=1),
-        lambda: run_train.main(["--basedir", str(tmp_path / "logs"), "--i_grid", "0",
-                                "--n_iters", "1"]),
+        lambda: init_point_field(gen, cfg),
+        lambda: init_student(gen, StudentConfig(depth=1, width=16)),
+        lambda: load_grid(grid_path),
+        lambda: train(Config(basedir=str(tmp_path / "logs")), n_iters=1),
+        lambda: run_train.main(["--basedir", str(tmp_path / "logs"), "--n_iters", "1"]),
     ]
     if torch.cuda.is_available():
         assert init_field_params(gen, cfg)["xyz"]["w_pts"].device.type == "cuda"
@@ -151,8 +160,9 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
 
 def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
     """The CLI's teacher route on the CPU at a tiny size: seeded weights, a UV
-    JPEG, a port checkpoint; and its refusals, each naming the ROADMAP item
-    that lifts it."""
+    JPEG, a port checkpoint; the --fast and --distill routes from the same
+    teacher; and the refusal of an Orbax-only directory, naming the ROADMAP
+    item that lifts it."""
     from mofanerf_tpu_torch.cli import run_render
     from mofanerf_tpu_torch.config import load_config
     from mofanerf_tpu_torch.train.checkpoint import save_checkpoint
@@ -175,8 +185,9 @@ def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
                             + argv[argv.index("--person") + 2:])
     assert np.abs(other - frames).max() > 0
 
-    with pytest.raises(SystemExit, match="ROADMAP A6"):
-        run_render.main(argv + ["--fast"])
+    # the occupancy-culled route (no maintained grid: the coarse field is probed)
+    fast = run_render.main(argv + ["--fast"])
+    assert fast.shape == (2, 8, 8, 3) and np.isfinite(fast).all()
     # the person's UV JPEG is read and encoded: another texture code, another frame
     os.makedirs(tmp_path / "uv" / "2")
     write_jpeg(str(tmp_path / "uv" / "2" / "1_neutral.jpg"),
@@ -193,5 +204,6 @@ def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
     os.makedirs(tmp_path / "ckpts" / "1000")
     with pytest.raises(SystemExit, match="ROADMAP A3"):
         run_render.main(argv + ["--person", "1", "--ckpt_dir", str(tmp_path / "ckpts")])
-    with pytest.raises(SystemExit, match="ROADMAP A4"):
-        run_render.main(argv + ["--person", "1", "--distill"])
+    # a student distilled from the teacher and served, with no artifact path
+    student = run_render.main(argv + ["--person", "1", "--distill", "--distill_steps", "2"])
+    assert student.shape == (2, 8, 8, 3) and np.isfinite(student).all()
