@@ -56,6 +56,21 @@ Phases, each failing loudly:
      (--distill_avatars 0,1) at 100 steps, each distilled, saved and served
      again; --fast through the kept grid; and, as a reading, the PSNR of the
      served and the fast frame against the teacher's.
+  8. fitting path, on the same checkpoint and fixture: a 512x512 target
+     rendered through render_frame at known codes and pose, its pose file
+     (that pose rotated by 5 degrees, the fixture's landmarks projected); the
+     run_fit CLI (fitting 101 steps with the pose frozen for 30, then
+     rendering and rendering_modulation from its codes: previews and views
+     through the field kernel); the steady fit step at the 128^2, 256^2 and
+     512^2 pyramid levels (median, back to back, its operations bound, peak
+     memory, no host synchronisation under torch.cuda.set_sync_debug_mode,
+     torch.profiler's busy share and launches); the evaluate CLI on the
+     fixture's test split (plain, --render_factor 2, --fast) and export_grids
+     (2 identities x 2 expressions) with one grid loaded back and rendered
+     through render_frame_fast. It checks the files, that the loss fell, that
+     the pose stayed on SO(3) and bit-still through the freeze, that a
+     rendering frame equals render_fit_frame of the same codes, and finite
+     PSNR and SSIM.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -114,6 +129,10 @@ RAGGED = ((1, 50), (61, 67))
 # queries (DistillConfig.batch points, one a ray) and the fine field of `run_render --fast`
 # (a packet of spec.render.packet_size rays, k_keep = 32 samples)
 SLICE_SHAPES = {"distill": (32768, 1), "fast": (8192, 32)}
+# the fitting phase: run_fit's iterations and pose freeze, the initial pose's rotation off
+# the target's, the steady step's warm-ups and timed steps a pyramid level, profiled steps
+FIT_ITERS, FIT_FREEZE, FIT_ROTATION_DEG = 100, 30, 5.0
+FIT_WARMUP, FIT_TIMED, FIT_PROFILED = 2, 6, 3
 
 
 def fail(failures, msg):
@@ -1277,6 +1296,311 @@ def distill_phase(failures, card, dev, render_flags, tmp, teacher_sec):
     return out
 
 
+def host_syncs(step, n=3):
+    """Where `step()` makes the host wait for the card, over n calls and then n
+    more: the sites torch.cuda.set_sync_debug_mode("warn") reports (a copy from
+    pageable memory, an .item(), ...), then the first one "error" mode raises at,
+    with its frames in this repo. [] when there is none."""
+    import traceback
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(n):
+                step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            step()
+    except RuntimeError as e:
+        where = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno} {f.name}"
+                 for f in traceback.extract_tb(e.__traceback__) if f.filename.startswith(REPO)]
+        syncs.append(f"{str(e).splitlines()[0]} at {' <- '.join(reversed(where))}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return syncs
+
+
+def fit_phase(failures, card, dev, render_flags, tmp):
+    """This slice's paths, on the training phase's checkpoint directory and
+    512^2 fixture: a target photo rendered through render_frame at known codes
+    and pose, its pose file (the pose rotated by FIT_ROTATION_DEG, the
+    fixture's landmarks projected), then the run_fit CLI at the full width of
+    configs/exp_mofanerf.txt (fitting, rendering, rendering_modulation), the
+    steady fit step at each pyramid level, evaluate on the fixture's test
+    split (plain, --render_factor 2, --fast) and export_grids with a grid
+    loaded back and rendered through render_frame_fast."""
+    import contextlib
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mofanerf_tpu_torch.cli import evaluate, export_grids, run_fit
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.data.facescape import read_image
+    from mofanerf_tpu_torch.data.landmarks import FitRaySampler, project_landmarks
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.occupancy import render_frame_fast
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (encode_texture, exp_code_for,
+                                                    prepare_conditioning, render_frame)
+    from mofanerf_tpu_torch.train import fit as tf
+    from mofanerf_tpu_torch.train import fit_loop
+    from mofanerf_tpu_torch.train.checkpoint import load_model
+    from mofanerf_tpu_torch.utils.device import to_device
+    from mofanerf_tpu_torch.utils.image_io import resize_linear, write_png
+    from mofanerf_tpu_torch.utils.metrics import to8b
+
+    cfg = load_config(render_flags)
+    spec = cfg.model_spec()
+    ckpt_dir = os.path.join(cfg.basedir, cfg.expname, "checkpoints")
+    params, step = load_model(ckpt_dir, spec, dev)
+    fcfg = tf.FitConfig(n_rand=cfg.N_rand)
+    H = fcfg.H
+    K = np.array([[fcfg.focal, 0, H / 2], [0, fcfg.focal, H / 2], [0, 0, 1]], np.float32)
+    out = {"launches": {}}
+
+    # ---- the target: identity 0 at expression 0 with its encoded texture, a known pose
+    true_pose = pose_spherical(0.0, -5.0, 16.0)
+    uv = read_image(os.path.join(cfg.uvdir, "0", "1_neutral.jpg"), is_uvmap=True,
+                    uv_size=spec.uv_size)
+    with torch.no_grad():
+        shape = torch.from_numpy(np.load(cfg.shape_codes_path)[0].astype(np.float32)).to(dev)
+        tex = encode_texture(params, spec, torch.from_numpy(uv).to(dev))
+        cond = prepare_conditioning(params, spec, shape, exp_code_for(params, 0), tex)
+    target = render_frame(params, spec, cond, H, H, K, true_pose[:3])["rgb"].float().cpu().numpy()
+    name = "face"
+    photo = os.path.join(tmp, "fit", "segRelRes", f"{name}.png")
+    os.makedirs(os.path.dirname(photo))
+    write_png(photo, to8b(target))
+    th = np.deg2rad(FIT_ROTATION_DEG)
+    dR = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+    init_pose = true_pose.copy()
+    init_pose[:3, :3] = (dR @ true_pose[:3, :3]).astype(np.float32)
+    kp2d = project_landmarks(np.load(cfg.landmarks_path)[0, 0] / 50.0, K, true_pose)
+    np.save(os.path.join(tmp, "fit", f"pose_{name}.npy"), {"pose": init_pose, "kp": kp2d},
+            allow_pickle=True)
+    out_dir = os.path.join(tmp, "fit", "fitting", f"segRelRes_{name}")
+    argv = ["--filePath", photo, "--num_iterations", str(FIT_ITERS), "--pose_freeze_iters",
+            str(FIT_FREEZE), "--device", str(dev)] + render_flags
+    preview_packets = n_packets((H // 2) ** 2, spec.render.packet_size)
+
+    def count(route, call, want):
+        """One call with the field kernel's count zeroed just before and read just
+        after: (result, printed text, seconds); fails unless the count is `want`
+        (None: at least one)."""
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            result = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = fk.launch_count
+        out["launches"][route] = got
+        print(f"fit: {route}: {seconds:.2f} s for the call; field kernel launches {got} "
+              f"(expected {'some' if want is None else want})", flush=True)
+        if got != (max(got, 1) if want is None else want):
+            fail(failures, f"fit {route}: field kernel launches {got}, expected "
+                           f"{'at least 1' if want is None else want}")
+        return result, tee.text(), seconds
+
+    # ---- the CLI routes; the fit's poses kept step by step (device copies, no reads)
+    poses, step_fn = [], fit_loop.fit_step
+
+    def kept(*a, **kw):
+        res = step_fn(*a, **kw)
+        poses.append(res[0].codes.pose.clone())
+        return res
+
+    fit_loop.fit_step = kept
+    try:
+        # previews at 100 and the final one, both fields a packet
+        n_previews = sum(1 for e in range(1, FIT_ITERS + 1)
+                         if e % fcfg.preview_every == 0 or e in (100, 200, 300)) + 1
+        state, text, fit_sec = count("fitting", lambda: run_fit.main(
+            argv + ["--renderType", "fitting"]), 2 * n_previews * preview_packets)
+    finally:
+        fit_loop.fit_step = step_fn
+    losses = [float(v) for v in re.findall(r"\[FIT\] iter \d+ loss (\S+)", text)]
+    views, _, _ = count("rendering", lambda: run_fit.main(argv + ["--renderType", "rendering"]),
+                        2 * 3 * preview_packets)
+    mods, _, _ = count("rendering_modulation", lambda: run_fit.main(
+        argv + ["--renderType", "rendering_modulation"]),
+        2 * len(fit_loop.MODULATION_EXPRESSIONS) * preview_packets)
+    files = sorted(os.listdir(out_dir))
+    want_files = sorted(["target.png", "fit_params.npz", "fit_params.npz.opt.pt",
+                         "fit_final.png", "fit_00100.png"] + list(views) + list(mods))
+    R = [p[:3, :3].double().cpu().numpy() for p in poses]
+    ortho = max(float(np.abs(r.T @ r - np.eye(3)).max()) for r in R)
+    det = max(abs(float(np.linalg.det(r)) - 1.0) for r in R)
+    still = all(torch.equal(p, poses[0]) for p in poses[:FIT_FREEZE]) and np.array_equal(
+        poses[0].cpu().numpy(), init_pose.astype(np.float32))
+    moved = not torch.equal(poses[-1], poses[0])
+
+    def rot_err(pose):
+        r = pose[:3, :3] @ true_pose[:3, :3].T
+        return float(np.rad2deg(np.arccos(np.clip((np.trace(r) - 1) / 2, -1, 1))))
+
+    final_pose = state.codes.pose.double().cpu().numpy()
+    K2 = np.array([[fcfg.focal / 2, 0, H / 4], [0, fcfg.focal / 2, H / 4], [0, 0, 1]],
+                  np.float32)
+    view0 = state.codes._replace(pose=torch.from_numpy(pose_spherical(0.0, 0.0, 16.0)).to(dev))
+    again = tf.render_fit_frame(params, spec, view0, H // 2, H // 2, K2)["rgb"].float().cpu()
+    frame_diff = float(np.abs(again.numpy() - views["novel_yaw+000.png"]).max())
+    print(f"fit: run_fit {FIT_ITERS + 1} steps (pose frozen {FIT_FREEZE}) in {fit_sec:.2f} s with "
+          f"start-up, 2 previews and the saves; loss at the log windows {losses}; pose on SO(3): "
+          f"max |R^T R - I| {ortho:.2e}, max |det R - 1| {det:.2e} over {len(poses)} steps, "
+          f"bit-still through the freeze {still}; rotation error {rot_err(init_pose):.2f} -> "
+          f"{rot_err(final_pose):.2f} deg; a rendering frame against render_fit_frame of the same "
+          f"codes: max |diff| {frame_diff:.3e}; files {files}", flush=True)
+    if files != want_files:
+        fail(failures, f"run_fit wrote {files}, expected {want_files}")
+    if len(losses) != FIT_ITERS // 10 + 1 or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        fail(failures, f"fit loss did not fall or is not finite: {losses}")
+    if not ortho <= 1e-4 or not det <= 1e-4 or not still or not moved:
+        fail(failures, f"fit pose: |R^T R - I| {ortho}, |det - 1| {det}, still through the "
+                       f"freeze {still}, moved after it {moved}")
+    if frame_diff > 1e-6:
+        fail(failures, f"a rendering frame differs from render_fit_frame ({frame_diff})")
+    if not all(np.isfinite(f).all() and f.shape == (H // 2, H // 2, 3)
+               for f in list(views.values()) + list(mods.values())):
+        fail(failures, "run_fit's rendering frames are not finite 256x256 frames")
+    out.update(fit_seconds=fit_sec, loss_first=losses[0] if losses else None,
+               loss_last=losses[-1] if losses else None, pose_ortho_err=ortho,
+               rotation_err_deg=[rot_err(init_pose), rot_err(final_pose)])
+
+    # ---- the steady fit step at each pyramid level (128^2, 256^2, 512^2)
+    tx = tf.make_fit_optimizer(fcfg)
+    sampler, rng = FitRaySampler(kp2d, H), np.random.default_rng(1)
+    levels = {}
+    for scale in (4, 2, 1):
+        side = H // scale
+        scaled = resize_linear(target, (side, side)).astype(np.float32)
+
+        def batch():
+            coords = sampler.sample(rng, fcfg.n_rand, scale=scale, target_img=scaled)
+            return (to_device(coords, dev), to_device(scaled[coords[:, 0], coords[:, 1]], dev),
+                    to_device(K / scale, dev))
+
+        levels[side] = (scaled, batch)
+    times = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for side, (_, batch) in levels.items():
+        times[side] = []
+        for i in range(FIT_WARMUP + FIT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = tf.fit_step(params, spec, tx, state, *batch(), FIT_FREEZE)
+            torch.cuda.synchronize()
+            times[side].append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    med = {side: float(np.median(t[FIT_WARMUP:])) * 1e3 for side, t in times.items()}
+    ms = float(np.median([v for t in times.values() for v in t[FIT_WARMUP:]])) * 1e3
+    # back to back, as the loop runs them: no synchronisation until the end
+    batch = levels[H][1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FIT_TIMED):
+        state, loss = tf.fit_step(params, spec, tx, state, *batch(), FIT_FREEZE)
+    torch.cuda.synchronize()
+    piped = (time.perf_counter() - t0) / FIT_TIMED * 1e3
+    # a steady step must not synchronise with the host
+
+    def one_step():
+        nonlocal state, loss
+        state, loss = tf.fit_step(params, spec, tx, state, *batch(), FIT_FREEZE)
+
+    syncs = host_syncs(one_step)
+    torch.cuda.synchronize()
+    n_fine = spec.render.n_coarse + spec.render.n_importance   # the fine pass on the union
+    fwd = fcfg.n_rand * (
+        spec.render.n_coarse * field_flops_per_point(spec.coarse, fk._plan_len(spec.coarse))
+        + n_fine * field_flops_per_point(spec.fine, fk._plan_len(spec.fine)))
+    bound_ms = 2 * fwd / PEAK_BF16 * 1e3
+    print(f"fit step: {ms:.2f} ms (median of {FIT_TIMED} a level after {FIT_WARMUP} warm-up, "
+          f"host clock, synchronised around each step, its host batch included), "
+          f"{1e3 / ms:.2f} iters/s; by level "
+          + ", ".join(f"{s}^2 {v:.2f} ms" for s, v in med.items())
+          + f"; back to back at 512^2 {piped:.2f} ms a step; a 2000-iteration fit's steps "
+          f"{2000 * piped / 1e3:.1f} s; peak memory {peak / 2**30:.2f} GiB on {card}", flush=True)
+    print(f"fit step: operations bound {bound_ms:.2f} ms = 2 x (fields {fwd / 1e12:.3f} TFLOP "
+          f"forward at bf16 peak: the forward and the backward to the inputs, no weight "
+          f"gradients); the step is {bound_ms / ms:.1%} of its bound; host synchronisations in "
+          f"3 + 3 steady steps (torch.cuda.set_sync_debug_mode 'warn', then 'error'): "
+          f"{'; '.join(syncs) if syncs else 'none'}", flush=True)
+    if syncs:
+        fail(failures, f"a steady fit step synchronises with the host: {'; '.join(syncs)}")
+    if not np.isfinite(float(loss)):
+        fail(failures, f"fit step loss {float(loss)}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FIT_PROFILED):
+            state, loss = tf.fit_step(params, spec, tx, state, *batch(), FIT_FREEZE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    self_us = [(e.key, getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
+               for e in kernels]
+    busy = sum(v for _, v in self_us) / 1e6
+    n_launch = sum(e.count for e in kernels) / FIT_PROFILED
+    products = sum(v for k, v in self_us if any(w in k.lower() for w in
+                                                 ("gemm", "nvjet", "xmma", "cutlass", "sm90")))
+    top = sorted(self_us, key=lambda kv: -kv[1])[:6]
+    print(f"fit step: profiled {FIT_PROFILED} steps: {wall / FIT_PROFILED * 1e3:.2f} ms a step "
+          f"under the profiler, card busy {busy / FIT_PROFILED * 1e3:.2f} ms a step "
+          f"({busy / wall:.1%}), GEMM kernels {products / FIT_PROFILED / 1e3:.2f} ms, in "
+          f"{n_launch:.0f} kernel launches a step; top: "
+          + "; ".join(f"{k[:48]} {v / FIT_PROFILED / 1e3:.2f} ms" for k, v in top)
+          + f" on {card}", flush=True)
+    out["step"] = dict(ms=ms, ms_by_side=med, back_to_back_ms=piped, iters_per_s=1e3 / ms,
+                       bound_ms=bound_ms, peak_memory_bytes=peak,
+                       busy_share=busy / wall if wall else None, launches=n_launch,
+                       host_syncs=len(syncs))
+
+    # ---- evaluate on the fixture's test split, then export_grids and a fast frame
+    for route, flags, want in (
+            ("evaluate", [], None), ("evaluate --render_factor 2", ["--render_factor", "2"], None),
+            ("evaluate --fast", ["--fast"], None)):
+        ev_dir = os.path.join(tmp, "eval", route.replace(" ", "_").replace("-", ""))
+        res, _, _ = count(route, lambda: evaluate.main(
+            ["--out_dir", ev_dir, "--device", str(dev)] + flags + render_flags), want)
+        metrics = json.load(open(os.path.join(ev_dir, "metrics.json")))
+        print(f"fit: {route}: metrics.json {metrics}", flush=True)
+        out[route] = metrics
+        if not (metrics["n_views"] > 0 and np.isfinite(metrics["psnr_mean"])
+                and np.isfinite(metrics["ssim_mean"])):
+            fail(failures, f"{route}: metrics {metrics}")
+    grids = os.path.join(tmp, "grids.npz")
+    shares, _, _ = count("export_grids", lambda: export_grids.main(
+        ["--out", grids, "--expressions", "0,1", "--device", str(dev)] + render_flags), 0)
+    grid = export_grids.load_exported_grid(grids, 1, 1, device=dev)
+    fast, _, _ = count("export_grids' grid through render_frame_fast", lambda: render_frame_fast(
+        params, spec, cond.fine, grid, H, H, K, true_pose[:3]), None)
+    rgb = fast["rgb"]
+    print(f"fit: export_grids {len(shares)} grids, occupied {shares}; grid (1, 1) loaded back, "
+          f"a {H}x{H} render_frame_fast frame finite {bool(torch.isfinite(rgb).all())}",
+          flush=True)
+    if set(shares) != {f"occ_{p}_{e}" for p in (0, 1) for e in (0, 1)} \
+            or rgb.shape != (H, H, 3) or not bool(torch.isfinite(rgb).all()):
+        fail(failures, f"export_grids: {shares}, fast frame {tuple(rgb.shape)}")
+    out["grids_occupied"] = shares
+    return out
+
+
 def train_step_timing(failures, card, dev, final, cfg, batches):
     """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
     samples, the fine pass on 128, N_rand 1024, UV 512, bf16) from the trained state:
@@ -1323,6 +1647,14 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
           f"TFLOP at bf16 peak + texture encoder {fwd_enc / 1e9:.3f} GFLOP at f32 peak); the step "
           f"is {bound_ms / ms:.1%} of its bound", flush=True)
 
+    def one_step():
+        nonlocal state
+        state, _ = st.train_step(state, batches[-1], loop.step_generator(0, 99, dev), spec, tx)
+
+    syncs = host_syncs(one_step)
+    print(f"train step: host synchronisations in 3 + 3 steps (a reading, not a check; "
+          f"torch.cuda.set_sync_debug_mode 'warn', then 'error'): "
+          f"{'; '.join(syncs) if syncs else 'none'}", flush=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1443,17 +1775,30 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         dist = distill_phase(failures, card, dev, render_flags, work, teacher_sec)
         print(f"path phase (distillation, --fast): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        fitted = fit_phase(failures, card, dev, render_flags, work)
+        print(f"path phase (fitting, evaluate, export_grids): {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(json.dumps({"distill": dist}), flush=True)
+    print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
 
     main_row = rows["bfloat16"]   # the dtype the serving path runs
     launched = dist["launches"]
-    slice_launches = {   # this slice's paths, by the field kernel's shape
+    fit_launched = fitted["launches"]
+    # the fitting slice's renders at the teacher's packet shape (both fields a packet:
+    # half of the wrapper's count a field), and its fast frames at --fast's shape
+    packet_by_path = {"fit": sum(fit_launched[k] for k in
+                                 ("fitting", "rendering", "rendering_modulation")) // 2,
+                      "evaluate": sum(fit_launched[k] for k in
+                                      ("evaluate", "evaluate --render_factor 2")) // 2}
+    slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
                        ("--distill", "--distill_cond", "--distill_avatars")),
-        "fast": launched["--fast"]["field"]}
+        "fast": launched["--fast"]["field"] + fit_launched["evaluate --fast"]
+        + fit_launched["export_grids' grid through render_frame_fast"]}
     serve_by_path = {"serving": launches,
                      "distill": sum(v["serve"] for v in launched.values())}
     field_entries = []
@@ -1465,9 +1810,11 @@ def main(argv) -> int:
             "source": "mofanerf_tpu_torch/csrc/field_kernel.cu",
             "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
             # render_rays launches each field once a packet: half of the wrapper's count,
-            # over the two paths B1 is on (the teacher render, training's renders)
-            "launches": (field_launches + train_launches) // 2,
-            "launches_by_path": {"teacher": field_launches // 2, "train": train_launches // 2},
+            # over the paths that render frames (the teacher render, training's renders,
+            # the fit's previews and views, evaluate)
+            "launches": (field_launches + train_launches) // 2 + sum(packet_by_path.values()),
+            "launches_by_path": {"teacher": field_launches // 2, "train": train_launches // 2,
+                                 **packet_by_path},
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

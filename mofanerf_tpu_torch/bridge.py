@@ -144,3 +144,29 @@ def train_state_to_torch(state, spec: MoFaNeRF, device="cuda"):
                             model_params_to_torch(adam.nu, spec, dev)),
         step=as_int(state.step),
     )
+
+
+def fit_state_to_torch(state, device="cuda"):
+    """A JAX FitState (numpy leaves: `jax.tree.map(np.asarray, state)`) -> the
+    port's FitState. optax.multi_transform's state holds, for each group of
+    `train/fit.py::FIT_GROUPS`, `(ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count))` with the group's codes in mu and nu; the
+    two counts advance together, so they must agree."""
+    from mofanerf_tpu_torch.train.fit import FIT_GROUPS, FitCodes, FitState
+    from mofanerf_tpu_torch.train.state import AdamState
+
+    dev = resolve_device(device)
+    as_int = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=dev)
+    as_f32 = lambda v: torch.from_numpy(np.array(v, np.float32)).to(dev)
+    opt = {}
+    for group, names in FIT_GROUPS.items():
+        adam, sched = state.opt_state.inner_states[group].inner_state
+        if int(np.asarray(adam.count)) != int(np.asarray(sched.count)):
+            raise ValueError(f"{group}: optimiser counts differ: adam "
+                             f"{int(np.asarray(adam.count))}, schedule "
+                             f"{int(np.asarray(sched.count))}")
+        opt[group] = AdamState(as_int(adam.count),
+                               {n: as_f32(getattr(adam.mu, n)) for n in names},
+                               {n: as_f32(getattr(adam.nu, n)) for n in names})
+    codes = FitCodes(*[as_f32(getattr(state.codes, n)) for n in FitCodes._fields])
+    return FitState(codes, opt, as_int(state.step))

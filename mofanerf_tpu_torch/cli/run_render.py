@@ -58,10 +58,9 @@ from mofanerf_tpu_torch.ops.occupancy import (build_proposal_grid, grid_aabb, lo
 from mofanerf_tpu_torch.ops.rays import pose_spherical
 from mofanerf_tpu_torch.ops.serve_kernel import pack_student
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
-                                                init_model_params, prepare_conditioning,
-                                                render_path)
+                                                prepare_conditioning, render_path)
 from mofanerf_tpu_torch.render.serve import render_frame_serve
-from mofanerf_tpu_torch.train.checkpoint import latest_step, orbax_steps, restore_checkpoint
+from mofanerf_tpu_torch.train.checkpoint import load_model
 from mofanerf_tpu_torch.train.distill import (DistillConfig, avatar_code, distill,
                                               distill_avatars, distill_expressions,
                                               distill_provenance, load_student, save_student,
@@ -103,16 +102,8 @@ class _Teacher:
     @property
     def params(self):
         if self._params is None:
-            step = latest_step(self.ckpt_dir)
-            if step is None and orbax_steps(self.ckpt_dir):
-                raise SystemExit(
-                    f"{self.ckpt_dir} holds only Orbax checkpoints of the JAX package; the port "
-                    "reads its own .pt checkpoints, and an Orbax reader is ROADMAP A3 (queued "
-                    "under A11)")
-            params = init_model_params(torch.Generator().manual_seed(0), self.spec,
-                                       device=self.args.device)
+            params, step = load_model(self.ckpt_dir, self.spec, self.args.device)
             if step is not None:
-                params = restore_checkpoint(self.ckpt_dir, params, step)
                 print(f"loaded checkpoint (step {step})")
             else:
                 print("WARNING: rendering an untrained model")

@@ -1,6 +1,6 @@
 """Landmark-biased training ray sampling, host-side numpy (counterpart of
 mofanerf_tpu/data/landmarks.py: `anneal_lm_frac`, `project_landmarks`,
-`TrainRaySampler`).
+`TrainRaySampler`, `FitRaySampler`).
 
 Index selection is data preparation: it stays on the host on an
 `np.random.Generator` and produces int32 (row, col) coordinates, drawn in
@@ -101,3 +101,54 @@ class TrainRaySampler:
         coords[:, 0] = np.clip(coords[:, 0], 0, H - 1)
         coords[:, 1] = np.clip(coords[:, 1], 0, W - 1)
         return coords.astype(np.int32)
+
+
+class FitRaySampler:
+    """Fitting-time sampler around detected 2D keypoints (the reference's
+    run_fit.py:35-82): Gaussian clouds around the 68 landmarks, kept where the
+    target is not black, plus points along the jaw outline."""
+
+    def __init__(self, kp2d: np.ndarray, H: int = 512):
+        """kp2d: [68, 2] (row, col) detected landmarks at full resolution."""
+        self.kp2d = np.asarray(kp2d, np.float64)
+        self.H = H
+
+    def sample(
+        self,
+        rng: np.random.Generator,
+        n: int,
+        scale: int = 1,
+        target_img: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """[n, 2] int32 coords at the current pyramid scale (image side =
+        H // scale)."""
+        lm2d = self.kp2d / scale
+        side = self.H // scale
+        per_lm = max(1, n * 2 // 68)
+        sigma = self.H * 0.025 / scale
+        jitter = rng.standard_normal((68, per_lm, 2)) * sigma
+        samples = (lm2d[:, None, :] + jitter).reshape(-1, 2)
+        samples = np.clip(samples, 0, side - 1).astype(np.int64)
+
+        if target_img is not None:
+            mask = target_img.sum(axis=2)
+            on_face = mask[samples[:, 0], samples[:, 1]] != 0
+            samples = samples[on_face]
+            # extra points along the jaw outline (run_fit.py:56-61)
+            outline = np.concatenate([lm2d[1:5], lm2d[12:16]], axis=0)
+            n_out = max(1, samples.shape[0] // 50 * scale)
+            jit = rng.standard_normal((8, n_out, 2)) * sigma
+            extra = (outline[:, None, :] + jit).reshape(-1, 2)
+            extra = np.clip(extra, 0, side - 1).astype(np.int64)
+            samples = np.concatenate([samples, extra], axis=0)
+
+        if samples.shape[0] == 0:
+            samples = np.stack(
+                [rng.integers(0, side, n), rng.integers(0, side, n)], -1
+            )
+        if samples.shape[0] < n:
+            reps = n // samples.shape[0] + 1
+            samples = np.tile(samples, (reps, 1))[:n]
+        else:
+            samples = samples[rng.choice(samples.shape[0], n, replace=False)]
+        return samples.astype(np.int32)

@@ -30,6 +30,25 @@ def sigma_act(name: str):
     raise ValueError(f"sigma_activation must be 'relu' or 'softplus', got {name!r}")
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """torch.cumprod over the last dim of a tensor with no zero element. Its
+    backward is torch's own for that case, the reversed cumulative sum of
+    grad x output divided by the input, without torch's test for zeros: that
+    test reads a flag back to the host, which would make every differentiated
+    render wait for the card."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def composite(
     raw_rgb: torch.Tensor,
     raw_sigma: torch.Tensor,
@@ -61,11 +80,10 @@ def composite(
         raw_sigma = raw_sigma + noise * raw_noise_std
 
     alpha = 1.0 - torch.exp(-sigma_act(sigma_activation)(raw_sigma) * dists)
-    # exclusive cumprod of transmittance: T_i = prod_{j<i} (1 - alpha_j + eps)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-        dim=-1,
-    )[..., :-1]
+    # exclusive cumprod of transmittance: T_i = prod_{j<i} (1 - alpha_j + eps), whose
+    # factors are >= eps > 0 (alpha <= 1)
+    trans = _PositiveCumprod.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1))[..., :-1]
     weights = alpha * trans
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)

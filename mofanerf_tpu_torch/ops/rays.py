@@ -1,5 +1,6 @@
 """Ray generation and camera-path helpers (counterpart of
-mofanerf_tpu/ops/rays.py: `get_rays`, `get_rays_at`, `pose_spherical`).
+mofanerf_tpu/ops/rays.py: `get_rays`, `get_rays_at`, `ndc_rays`,
+`pose_spherical`).
 
 Convention matches the reference: pixel grid in xy-indexing, camera looks
 down -z, y up.
@@ -43,6 +44,29 @@ def get_rays_at(coords_ij: torch.Tensor, K: torch.Tensor, c2w: torch.Tensor):
     rays_d = dirs @ c2w[:3, :3].T
     rays_o = c2w[:3, -1].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(H: int, W: int, focal: float, near: float, rays_o: torch.Tensor,
+             rays_d: torch.Tensor):
+    """Shift rays to the near plane and project them to normalised device
+    coordinates (the reference's models/model.py:293-310). Unused by the
+    FaceScape path (ndc=False) but part of the public surface."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (W / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - rays_o[..., 0] / rays_o[..., 2]
+    )
+    d1 = -1.0 / (H / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - rays_o[..., 1] / rays_o[..., 2]
+    )
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    return torch.stack([o0, o1, o2], -1), torch.stack([d0, d1, d2], -1)
 
 
 def _trans_t(t):

@@ -20,7 +20,7 @@ def _unit_steps(n: int, device) -> torch.Tensor:
     steps = torch.arange(n, dtype=torch.float32, device=device) * (
         torch.ones((), dtype=torch.float32, device=device) / div)
     if n > 1:
-        steps[-1] = 1.0
+        steps[-1:].fill_(1.0)   # a fill on the device: assigning a Python number copies from the host
     return steps
 
 

@@ -34,6 +34,7 @@ from mofanerf_tpu_torch.ops.serve_kernel import (
     render_packet_fused,
 )
 from mofanerf_tpu_torch.ops.sweep import sweep_frame, sweep_rays
+from mofanerf_tpu_torch.utils.device import to_device
 
 Params = Dict[str, Any]
 
@@ -111,17 +112,6 @@ def _params_device(params) -> torch.device:
     return params.w0.device if isinstance(params, StudentPack) else params["input"]["w"].device
 
 
-def _to_device(x, dev: torch.device) -> torch.Tensor:
-    """A small host array (box, K, pose) as f32 on `dev`. To the card it goes
-    from page-locked memory without blocking: a plain copy from pageable
-    memory waits for the card's queued work, which would keep a frame's host
-    set-up from overlapping the previous frame's kernels."""
-    t = torch.as_tensor(x, dtype=torch.float32)
-    if dev.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
 def _packed(params: Params, cfg, near, far, lo, hi, fused: bool):
     """What every packet reads, made once a frame or path: (the fused kernel's
     weight operands, a `prepare` for the sweep that makes the rays' operands
@@ -164,8 +154,8 @@ def render_frame_serve(
         params, cond = fold_student_code(params, cond), None
     pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
     dev = _params_device(params)
-    lo, hi = _to_device(aabb_min, dev), _to_device(aabb_max, dev)
-    K, c2w = _to_device(K, dev), _to_device(c2w, dev)
+    lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
+    K, c2w = to_device(K, dev), to_device(c2w, dev)
 
     packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
     return sweep_frame(
@@ -206,8 +196,8 @@ def render_path_serve(
     if isinstance(cfg, StudentConfig) and cond is not None:
         params, cond = fold_student_code(params, cond), None
     dev = _params_device(params)
-    lo, hi = _to_device(aabb_min, dev), _to_device(aabb_max, dev)
-    K, poses = _to_device(K, dev), _to_device(poses, dev)
+    lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
+    K, poses = to_device(K, dev), to_device(poses, dev)
 
     F = poses.shape[0]
     ro, rd = [], []

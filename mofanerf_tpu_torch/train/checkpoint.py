@@ -16,6 +16,7 @@ from typing import List
 
 import torch
 
+from mofanerf_tpu_torch.render.renderer import init_model_params
 from mofanerf_tpu_torch.train.state import AdamState, TrainState
 from mofanerf_tpu_torch.utils.tree import flatten_with_keystr, tree_unflatten
 
@@ -93,3 +94,19 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
         return out["params"]
     opt = out["opt_state"]
     return TrainState(out["params"], AdamState(opt["count"], opt["mu"], opt["nu"]), out["step"])
+
+
+def load_model(ckpt_dir: str, spec, device="cuda"):
+    """(model params on `device`, step): the params of the newest `.pt` in
+    ckpt_dir, or seeded weights (a CPU generator seeded 0) and None when there
+    is none. A directory of the JAX package's Orbax steps only is refused,
+    naming the ROADMAP item that lifts it."""
+    step = latest_step(ckpt_dir)
+    if step is None and orbax_steps(ckpt_dir):
+        raise SystemExit(
+            f"{ckpt_dir} holds only Orbax checkpoints of the JAX package; the port reads its "
+            "own .pt checkpoints, and an Orbax reader is ROADMAP A3 (queued under A11)")
+    params = init_model_params(torch.Generator().manual_seed(0), spec, device=device)
+    if step is not None:
+        params = restore_checkpoint(ckpt_dir, params, step)
+    return params, step

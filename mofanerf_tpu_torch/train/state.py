@@ -73,6 +73,12 @@ class Adam:
         return AdamState(count, map_tree(torch.zeros_like, params),
                          map_tree(torch.zeros_like, params))
 
+    def rate(self, count: torch.Tensor):
+        """The learning rate of the update that follows `count` accepted ones."""
+        if self.lrate_decay is None:
+            return self.lrate
+        return lr_at(count, self.lrate, self.lrate_decay)
+
     def update(self, grads, state: AdamState, params):
         """One update of leaf lists (tree_leaves order): returns (new params,
         new mu, new nu, new count)."""
@@ -87,9 +93,7 @@ class Adam:
         bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t   # f32 on the device: no host round trip
         denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
         upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        lr = (self.lrate if self.lrate_decay is None
-              else lr_at(state.count, self.lrate, self.lrate_decay))
-        upd = torch._foreach_mul(upd, -lr)
+        upd = torch._foreach_mul(upd, -self.rate(state.count))
         return torch._foreach_add(params, upd), mu, nu, count
 
 

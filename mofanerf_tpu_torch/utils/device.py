@@ -21,6 +21,18 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def to_device(x, dev: torch.device) -> torch.Tensor:
+    """A small host array (box, K, pose, a batch's coordinates) as f32 on
+    `dev`. To the card it goes from page-locked memory without blocking: a
+    plain copy from pageable memory waits for the card's queued work, which
+    would keep the host's set-up of the next frame or step from overlapping
+    the card's work on this one."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 @contextlib.contextmanager
 def f32_products():
     """f32 matrix products and convolutions in full f32 (TF32 off in cuBLAS

@@ -15,6 +15,8 @@ of mofanerf_tpu/data/facescape.py.
 - `resize_area`: `cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`
   for float images, area-weighted when shrinking, OpenCV's INTER_AREA
   coefficients when enlarging.
+- `resize_linear`: `cv2.resize(img, (w, h))` at its default INTER_LINEAR for
+  float images: two taps an axis, no antialiasing.
 """
 from __future__ import annotations
 
@@ -713,7 +715,48 @@ def resize_area(img: np.ndarray, size) -> np.ndarray:
         wy, wx = _area_weights(h, out_h), _area_weights(w, out_w)
     else:   # cv2 enlarges through its linear path with INTER_AREA's coefficients
         wy, wx = _area_up_weights(h, out_h), _area_up_weights(w, out_w)
-    x = img.astype(np.float64)
-    out = np.einsum("ij,jk...->ik...", wy, x)
+    return _separable(img, wy, wx)
+
+
+def _separable(img: np.ndarray, wy: np.ndarray, wx: np.ndarray) -> np.ndarray:
+    """[H, W(, C)] -> wy @ img @ wx^T over the two image axes, summed in f64,
+    in img's dtype."""
+    out = np.einsum("ij,jk...->ik...", wy, img.astype(np.float64))
     out = np.einsum("kl,il...->ik...", wx, out)
     return out.astype(img.dtype)
+
+
+# ---------------------------------------------------------------------------
+# cv2.resize(...) at its default interpolation, INTER_LINEAR
+
+
+def _linear_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] weights of OpenCV's INTER_LINEAR: the half-pixel source
+    position (dx + 0.5) * src / dst - 0.5 between taps sx = floor of it and
+    sx + 1, its fractional part fx (taken in f64, then rounded to f32) the
+    second tap's weight and 1 - fx (in f32) the first's; clamped to the edge
+    pixel at both ends."""
+    pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    sx = np.floor(pos).astype(np.int64)
+    fx = (pos - sx).astype(np.float32)
+    edge = (sx < 0) | (sx >= src - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, src - 1)
+    out = np.zeros((dst, src), np.float64)
+    rows = np.arange(dst)
+    out[rows, sx] = np.float32(1.0) - fx
+    inner = ~edge
+    out[rows[inner], sx[inner] + 1] = fx[inner]
+    return out
+
+
+def resize_linear(img: np.ndarray, size) -> np.ndarray:
+    """`cv2.resize(img, size)` (INTER_LINEAR) for a float [H, W] or
+    [H, W, C] image; `size` is (width, height) as cv2 takes it. A shrink
+    takes two taps an axis (512 -> 64 reads 2 x 2 of each 8 x 8 block), not
+    a box average."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_h, out_w) == (h, w):
+        return img.copy()
+    return _separable(img, _linear_weights(h, out_h), _linear_weights(w, out_w))

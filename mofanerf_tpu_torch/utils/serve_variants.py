@@ -43,7 +43,7 @@ alternating:
   frame          as it is
   frame_blocking its small host-to-card copies (box, K, pose) made from
                  pageable memory, which waits for the card's queued work
-                 (results right): what `render/serve.py::_to_device` saves
+                 (results right): what `utils/device.py::to_device` saves
 Needs one CUDA card and nvcc; prints the card's name and power limit.
 """
 from __future__ import annotations
@@ -195,7 +195,7 @@ def frame_turns(dev) -> dict:
     params = init_student_params(torch.Generator().manual_seed(1), cfg, device=dev)
     K = np.array([[1200.0, 0, FRAME / 2], [0, 1200.0, FRAME / 2], [0, 0, 1]], np.float32)
     c2w = pose_spherical(0.0, -5.0, 16.0)[:3]
-    copies = {"frame": serve._to_device,
+    copies = {"frame": serve.to_device,
               "frame_blocking": lambda x, d: torch.as_tensor(x, dtype=torch.float32, device=d)}
 
     def frame():
@@ -206,7 +206,7 @@ def frame_turns(dev) -> dict:
     try:
         for i in range(FRAME_PAIRS):
             for n in (list(copies) if i % 2 == 0 else list(reversed(copies))):
-                serve._to_device = copies[n]
+                serve.to_device = copies[n]
                 outs[n] = frame()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -215,7 +215,7 @@ def frame_turns(dev) -> dict:
                 torch.cuda.synchronize()
                 times[n].append((time.perf_counter() - t0) / FRAME_REPS * 1e3)
     finally:
-        serve._to_device = copies["frame"]
+        serve.to_device = copies["frame"]
     if not all(torch.equal(outs["frame"][k], outs["frame_blocking"][k]) for k in outs["frame"]):
         raise RuntimeError("the frame with blocking copies renders another frame")
     results = {}

@@ -47,7 +47,10 @@ def test_no_jax_imports_in_source(path):
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert "mofanerf_tpu_torch.ops.serve_kernel" in mods and len(mods) > 15
-    assert {"mofanerf_tpu_torch.train.distill", "mofanerf_tpu_torch.ops.occupancy"} <= set(mods)
+    assert {"mofanerf_tpu_torch.train.distill", "mofanerf_tpu_torch.ops.occupancy",
+            "mofanerf_tpu_torch.train.fit", "mofanerf_tpu_torch.train.fit_loop",
+            "mofanerf_tpu_torch.cli.run_fit", "mofanerf_tpu_torch.cli.evaluate",
+            "mofanerf_tpu_torch.cli.export_grids"} <= set(mods)
     code = f"""
 import sys
 
@@ -156,6 +159,38 @@ def test_teacher_entry_points_default_to_the_card(tmp_path):
     # a malformed tree fails on its layout, before any device is asked for
     with pytest.raises(ValueError, match="layers"):
         bridge.tex_encoder_to_torch(flax_like)
+
+
+def test_fitting_entry_points_default_to_the_card(tmp_path):
+    """The fitting slice's entry points and the evaluation and export CLIs ask
+    for the card too."""
+    from mofanerf_tpu_torch.cli import evaluate, export_grids, run_fit
+    from mofanerf_tpu_torch.train.fit import FitConfig, init_fit_codes, init_fit_state
+    from mofanerf_tpu_torch.train.fit_loop import load_fit_codes
+
+    pose = np.eye(4, dtype=np.float32)
+    path = str(tmp_path / "fit_params.npz")
+    np.savez(path, shape=np.zeros(50), tex=np.zeros(256), exp=np.zeros(30), pose=pose,
+             light=np.ones(2), step=0)
+    grids = str(tmp_path / "grids.npz")
+    np.savez_compressed(grids, resolution=2, aabb_min=-np.ones(3), aabb_max=np.ones(3),
+                        occ_0_0=np.packbits(np.ones(8, bool)))
+    calls = [
+        lambda: init_fit_codes(torch.Generator().manual_seed(0), pose),
+        lambda: init_fit_state(torch.Generator().manual_seed(0), FitConfig(), pose),
+        lambda: load_fit_codes(path),
+        lambda: export_grids.load_exported_grid(grids, 0, 0),
+        lambda: run_fit.main(["--filePath", str(tmp_path / "face.png")]),
+        lambda: evaluate.main(["--ckpt_dir", str(tmp_path)]),
+        lambda: export_grids.main(["--out", str(tmp_path / "g.npz"), "--ckpt_dir",
+                                   str(tmp_path)]),
+    ]
+    if torch.cuda.is_available():
+        assert load_fit_codes(path)[0].pose.device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):

@@ -140,3 +140,21 @@ def test_resize_area_matches_cv2(src, dst):
         got = iio.resize_area(img, (dst[1], dst[0]))
         assert got.shape == ref.shape and got.dtype == ref.dtype
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("src,dst", [((512, 512), (64, 64)), ((512, 512), (128, 128)),
+                                     ((512, 512), (256, 256)), ((512, 512), (512, 512)),
+                                     ((16, 16), (64, 64)), ((30, 20), (7, 9))],
+                         ids=["512to64", "512to128", "512to256", "512to512", "16to64",
+                              "ragged"])
+def test_resize_linear_matches_cv2(src, dst):
+    """cv2.resize at its default INTER_LINEAR (the fit's pyramid), f32 images
+    in colour and gray: atol 1e-6 (both compute two taps an axis in f32
+    weights; the port sums in f64)."""
+    rng = np.random.default_rng(5)
+    for img in (rng.uniform(0, 1, src + (3,)).astype(np.float32),
+                rng.uniform(0, 1, src).astype(np.float32)):
+        ref = cv2.resize(img, (dst[1], dst[0]))
+        got = iio.resize_linear(img, (dst[1], dst[0]))
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)

@@ -70,3 +70,23 @@ def test_get_rays_at_matches_jax():
                          torch.from_numpy(pose.astype(np.float32)))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4, 8])
+@pytest.mark.parametrize("target", ["none", "image", "black"])
+def test_fit_sampler_coordinates_are_identical(scale, target):
+    """FitRaySampler: one seed gives the JAX package's coordinates bit for bit
+    at every pyramid scale, without a target, with one (its black pixels
+    dropped, the jaw outline added) and with an all-black one (the uniform
+    fallback)."""
+    side = 128 // scale
+    rng = np.random.default_rng(3)
+    kp2d = rng.uniform(20, 108, (68, 2))
+    img = {"none": None, "black": np.zeros((side, side, 3), np.float32),
+           "image": rng.uniform(0, 1, (side, side, 3)).astype(np.float32)}[target]
+    if target == "image":
+        img[:, : side // 3] = 0.0
+    want = jlm.FitRaySampler(kp2d, 128).sample(np.random.default_rng(11), 200, scale, img)
+    got = tlm.FitRaySampler(kp2d, 128).sample(np.random.default_rng(11), 200, scale, img)
+    assert got.dtype == want.dtype == np.int32 and got.shape == (200, 2)
+    np.testing.assert_array_equal(got, want)

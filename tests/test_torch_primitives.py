@@ -151,3 +151,41 @@ def test_metrics():
                                float(jmetrics.mse2psnr(jnp.asarray(float(mse)))), rtol=1e-5)
     np.testing.assert_array_equal(metrics.to8b(T(a)), jmetrics.to8b(a))
     np.testing.assert_array_equal(metrics.to8b(a), jmetrics.to8b(a))
+
+
+@pytest.mark.parametrize("case", ["equal", "noisy", "shifted", "gray-range"])
+def test_ssim(case):
+    """The port's host-side SSIM against the JAX package's (both numpy f64)."""
+    from mofanerf_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 1, (24, 20, 3)).astype(np.float32)
+    b = {"equal": a, "noisy": np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1),
+         "shifted": np.roll(a, 3, axis=1), "gray-range": a * 0.5 + 0.2}[case]
+    want = jmetrics.ssim(a, b)
+    assert metrics.ssim(a, b) == want
+    assert (want == 1.0) == (case == "equal")
+
+
+def test_ndc_rays():
+    """ndc_rays at f32 rounding against the JAX package's."""
+    rng = np.random.default_rng(9)
+    ro = (rng.standard_normal((48, 3)) + [0, 0, 16]).astype(np.float32)
+    rd = (rng.standard_normal((48, 3)) * 0.2 + [0, 0, -1]).astype(np.float32)
+    want = jrays.ndc_rays(32, 24, 40.0, 1.0, jnp.asarray(ro), jnp.asarray(rd))
+    got = rays.ndc_rays(32, 24, 40.0, 1.0, T(ro), T(rd))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def test_transmittance_backward_is_torch_cumprods():
+    """composite's transmittance product differentiates as torch.cumprod does
+    on inputs without zeros, bit for bit, without torch's test for zeros (a
+    read back to the host)."""
+    x = (torch.from_numpy(np.random.default_rng(10).uniform(1e-10, 1.0, (64, 17)))
+         .float().requires_grad_(True))
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal((64, 17))).float()
+    want = torch.autograd.grad(torch.cumprod(x, -1), x, g)[0]
+    out = composite._PositiveCumprod.apply(x)
+    assert torch.equal(out, torch.cumprod(x, -1))
+    assert torch.equal(torch.autograd.grad(out, x, g)[0], want)
