@@ -71,6 +71,25 @@ Phases, each failing loudly:
      the pose stayed on SO(3) and bit-still through the freeze, that a
      rendering frame equals render_fit_frame of the same codes, and finite
      PSNR and SSIM.
+  9. RefineNet, on the same checkpoint and fixture, at the reference's full
+     width (ngf 32, 4 downsamplings, 9 ResNet blocks, num_D 2, n_layers_D 3,
+     loadSize 512): render_refine_trainset at 256^2 (the field kernel's
+     launches counted against 16 a frame), its --fast route for one
+     identity, prepare_refine_trainset, run_train_refinenet for 10 steps with
+     a seeded random VGG pickled in the JAX package's layout (finite losses,
+     both players moved, a checkpoint that --continue_train resumes), the
+     steady refine_train_step at 512^2 (median, peak memory, no host
+     synchronisation, torch.profiler's busy share and launches, its
+     operations bound from the convolutions' shapes), run_refine over the
+     corpus and the generator alone;
+  10. device-resident training data: run_train with device_data = True at
+     the full width of configs/exp_mofanerf.txt from the training phase's last
+     checkpoint, 16 steps in chunks of 4 that divide neither i_print nor
+     i_weights (the logs and checkpoints where the JAX loop's crossing rule
+     puts them; the held-out image's field kernel launches counted), the
+     resident split against estimate_device_bytes, a steady chunk's host
+     synchronisations (none allowed), and the device-data step against the
+     host-data step, back to back in turns.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -133,6 +152,12 @@ SLICE_SHAPES = {"distill": (32768, 1), "fast": (8192, 32)}
 # the target's, the steady step's warm-ups and timed steps a pyramid level, profiled steps
 FIT_ITERS, FIT_FREEZE, FIT_ROTATION_DEG = 100, 30, 5.0
 FIT_WARMUP, FIT_TIMED, FIT_PROFILED = 2, 6, 3
+# the RefineNet phase: the corpus's render side, the refiner's side (loadSize), its
+# training steps and the steady step's timed steps
+REFINE_RES, REFINE_SIDE, REFINE_STEPS, REFINE_TIMED = 256, 512, 10, 6
+# the device-data phase: steps after the training phase's last checkpoint, steps a chunk,
+# (i_print, i_weights) that the chunk divides neither of, steps a timed turn
+DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
 
 
 def fail(failures, msg):
@@ -1601,6 +1626,430 @@ def fit_phase(failures, card, dev, render_flags, tmp):
     return out
 
 
+def conv_flops(module, shape):
+    """Forward operations of a RefineNet module's convolutions on an input of
+    `shape` (2 x multiply-adds; a transposed convolution counted on its input),
+    from the shapes alone: the module runs on the meta device."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            x = inp[0]
+            total[0] += 2 * x.shape[0] * x.shape[2] * x.shape[3] * mod.in_channels \
+                * mod.out_channels * mod.kernel_size[0] * mod.kernel_size[1]
+        else:
+            total[0] += 2 * out.shape[0] * out.shape[2] * out.shape[3] * mod.out_channels \
+                * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        module(torch.zeros(shape, device="meta"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def profile_steps(step, n):
+    """n calls of step() under torch.profiler: (ms a call, card busy ms a call,
+    launches a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+               for e in kernels) / 1e6
+    return wall / n * 1e3, busy / n * 1e3, sum(e.count for e in kernels) / n
+
+
+def refine_phase(failures, card, dev, render_flags, tmp):
+    """RefineNet on the training phase's checkpoint and 512^2 fixture, at the
+    reference's full width (ngf 32, 4 downsamplings, 9 ResNet blocks at 512
+    channels, num_D 2, n_layers_D 3, loadSize 512): the corpus through
+    render_refine_trainset (plain, then --fast for one identity), its ground
+    truth, run_train_refinenet for REFINE_STEPS steps with a seeded random VGG
+    in the JAX package's pickle layout and a resume, the steady
+    refine_train_step timed and profiled, run_refine over the corpus."""
+    import contextlib
+    import pickle
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.cli import (prepare_refine_trainset, render_refine_trainset,
+                                        run_refine, run_train_refinenet)
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.models.refine.losses import VGG19Features, VGG_CONVS
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (exp_code_for, prepare_conditioning,
+                                                    render_frame)
+    from mofanerf_tpu_torch.train import refine as tr
+    from mofanerf_tpu_torch.train.checkpoint import load_model
+    from mofanerf_tpu_torch.utils.image_io import image_size
+
+    spec = load_config(render_flags).model_spec()
+    root = os.path.join(tmp, "refine")
+    train_dir, gt_dir = os.path.join(root, "train"), os.path.join(root, "gt")
+    out = {"launches": {}}
+
+    def count(route, call):
+        """One call with the field kernel's count zeroed just before and read
+        just after: (printed text, seconds, launches)."""
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            call()
+        torch.cuda.synchronize()
+        seconds, got = time.perf_counter() - t0, fk.launch_count
+        out["launches"][route] = got
+        return tee.text(), seconds, got
+
+    # 1-2. the corpus: the plain route for both identities, --fast for one
+    corpus_flags = ["--res", str(REFINE_RES), "--exp_num", "2", "--view_num", "2",
+                    "--device", str(dev)] + render_flags
+    _, sec, got = count("refine_corpus", lambda: render_refine_trainset.main(
+        ["--out_dir", train_dir] + corpus_flags))
+    with open(os.path.join(train_dir, "gt_manifest.json")) as f:
+        frames = sorted(json.load(f))
+    want = len(frames) * 2 * n_packets(REFINE_RES ** 2, spec.render.packet_size)
+    out["corpus_s_per_frame"] = sec / max(len(frames), 1)
+    print(f"refine: render_refine_trainset {len(frames)} frames at {REFINE_RES}^2 in {sec:.2f} s "
+          f"({out['corpus_s_per_frame']:.3f} s a frame with start-up); field kernel launches "
+          f"{got} (expected {want}: 2 a packet) on {card}", flush=True)
+    if got != want or not frames:
+        fail(failures, f"refine corpus: {len(frames)} frames, field kernel launches {got}, "
+                       f"expected {want}")
+    # the steady 256^2 frame of the plain route, apart from the CLI's start-up
+    params, _ = load_model(os.path.join(render_flags[render_flags.index("--basedir") + 1],
+                                        render_flags[render_flags.index("--expname") + 1],
+                                        "checkpoints"), spec, dev)
+    with torch.no_grad():
+        cond = prepare_conditioning(params, spec, torch.zeros(spec.shape_dim, device=dev),
+                                    exp_code_for(params, 0), torch.zeros(spec.tex_dim, device=dev))
+    K = np.array([[2.0 * REFINE_RES, 0, REFINE_RES / 2], [0, 2.0 * REFINE_RES, REFINE_RES / 2],
+                  [0, 0, 1]], np.float32)
+    pose = pose_spherical(0.0, -10.0, 16.0)[:3]
+    frame_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_frame(params, spec, cond, REFINE_RES, REFINE_RES, K, pose)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    out["corpus_frame_s"] = float(np.median(frame_s[1:]))
+    print(f"refine: a steady {REFINE_RES}^2 render_frame {out['corpus_frame_s']:.4f} s (median of "
+          f"2 after a warm-up; {frame_s})", flush=True)
+    del params, cond
+    fast_dir = os.path.join(tmp, "refine_fast")
+    _, sec, got = count("refine_corpus --fast", lambda: render_refine_trainset.main(
+        ["--out_dir", fast_dir, "--fast", "--begin_person", "0", "--end_person", "1"]
+        + corpus_flags))
+    with open(os.path.join(fast_dir, "gt_manifest.json")) as f:
+        fast_frames = sorted(json.load(f))
+    out["corpus_fast_s_per_frame"] = sec / max(len(fast_frames), 1)
+    print(f"refine: render_refine_trainset --fast, identity 0: {len(fast_frames)} frames in "
+          f"{sec:.2f} s ({out['corpus_fast_s_per_frame']:.3f} s a frame with a grid an "
+          f"expression); field kernel launches {got} (at least one a frame)", flush=True)
+    if (not fast_frames or got < len(fast_frames)
+            or not all(f.startswith("0" + os.sep) for f in fast_frames)):
+        fail(failures, f"refine corpus --fast: frames {fast_frames}, launches {got}")
+
+    # 3. the ground truth, resized from the fixture's 512^2 to the renders' side
+    t0 = time.perf_counter()
+    prepare_refine_trainset.main(["--renders_dir", train_dir, "--out_dir", gt_dir])
+    gts = [f for f in frames if os.path.exists(os.path.join(gt_dir, f))]
+    sides = {image_size(os.path.join(gt_dir, f)) for f in gts}
+    print(f"refine: prepare_refine_trainset {len(gts)} ground truths at {sides} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if len(gts) != len(frames) or sides != {(REFINE_RES, REFINE_RES)}:
+        fail(failures, f"prepare_refine_trainset: {len(gts)} of {len(frames)}, sides {sides}")
+
+    # 4. training: a seeded random VGG pickled in the JAX package's layout
+    vgg_init = tr.init_vgg_params(torch.Generator().manual_seed(3), device="cpu")
+    jax_layout = {"params": {name: {
+        "kernel": vgg_init[f"convs.{k}.weight"].numpy().transpose(2, 3, 1, 0),
+        "bias": vgg_init[f"convs.{k}.bias"].numpy()} for k, (name, _) in enumerate(VGG_CONVS)}}
+    vgg_path = os.path.join(tmp, "vgg_random.pkl")
+    with open(vgg_path, "wb") as f:
+        pickle.dump(jax_layout, f)
+    ckpts = os.path.join(tmp, "refine_ckpt")
+    argv = ["--dataroot", root, "--checkpoints_dir", ckpts, "--vgg_weights", vgg_path,
+            "--loadSize", str(REFINE_SIDE), "--display_freq", "1", "--device", str(dev)]
+    t0 = time.perf_counter()
+    state = run_train_refinenet.main(argv + ["--max_steps", str(REFINE_STEPS)])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    log = open(os.path.join(ckpts, "refine", "loss_log.txt")).read().splitlines()
+    losses = [{k.rstrip(":"): float(v) for k, v in zip(ln.split(") ")[1].split()[::2],
+                                                       ln.split(") ")[1].split()[1::2])}
+              for ln in log if ln.startswith("(epoch")]
+    cfg = tr.RefineConfig(load_size=REFINE_SIDE)
+    init = tr.init_refine_state(torch.Generator().manual_seed(0), cfg, 1, dev)
+    moved = {part: any(not torch.equal(getattr(state, part)[k], getattr(init, part)[k])
+                       for k in getattr(init, part)) for part in ("g_params", "d_params")}
+    saved = sorted(os.listdir(os.path.join(ckpts, "refine", "checkpoints")))
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    triples = [(round(m["loss_G"], 3), round(m["loss_D"], 3), round(m["G_VGG"], 3))
+               for m in losses]
+    print(f"refine: run_train_refinenet {REFINE_STEPS} steps at {REFINE_SIDE}^2 in {t_train:.2f} "
+          f"s with start-up; losses (loss_G, loss_D, G_VGG) {triples}"
+          f"; both players moved {moved}; checkpoints {saved}", flush=True)
+    if (len(losses) != REFINE_STEPS or not finite or not all(moved.values())
+            or f"{REFINE_STEPS:06d}.pt" not in saved or not all(m["G_VGG"] > 0 for m in losses)):
+        fail(failures, f"run_train_refinenet: {len(losses)} logged steps, finite {finite}, "
+                       f"moved {moved}, checkpoints {saved}")
+    text, _, _ = count("run_train_refinenet --continue_train", lambda: run_train_refinenet.main(
+        argv + ["--continue_train", "--max_steps", str(REFINE_STEPS + 2)]))
+    saved = sorted(os.listdir(os.path.join(ckpts, "refine", "checkpoints")))
+    if f"resumed at step {REFINE_STEPS}" not in text or f"{REFINE_STEPS + 2:06d}.pt" not in saved:
+        fail(failures, f"run_train_refinenet --continue_train did not resume: {saved}")
+
+    # 5-6. the steady step at 512^2, batch 1: timed, its syncs, profiled, its bound
+    vgg = {k: v.to(dev) for k, v in vgg_init.items()}
+    g_tx, d_tx = tr.make_refine_optimizers(cfg, len(frames))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = torch.rand((1, REFINE_SIDE, REFINE_SIDE, 3), generator=gen, device=dev) * 2 - 1
+    b = torch.clamp(a + 0.1 * torch.randn(a.shape, generator=gen, device=dev), -1, 1)
+
+    def one_step():
+        nonlocal state
+        state, _ = tr.refine_train_step(state, a, b, cfg, g_tx, d_tx, vgg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(2 + REFINE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = float(np.median(times[2:])) * 1e3
+    syncs = host_syncs(one_step)
+    prof_ms, busy_ms, n_launch = profile_steps(one_step, 3)
+    g, d = tr.build_models(cfg)
+    side = REFINE_SIDE
+    g_fwd = conv_flops(g, (1, 3, side, side))
+    d_fwd = conv_flops(d, (1, 6, side, side))
+    v_fwd = conv_flops(VGG19Features(device="meta"), (1, 3, side, side))
+    # G forward and backward (weights and inputs); D three times (the G loss's pass
+    # and its input backward; the real and the fake pair with weight backwards);
+    # VGG on the fake (forward and input backward) and on the real (forward)
+    step_flops = 3 * g_fwd + 6 * d_fwd + 3 * v_fwd
+    bound_ms = step_flops / PEAK_F32 * 1e3
+    print(f"refine step: {ms:.2f} ms at {side}^2, batch 1 (median of {REFINE_TIMED} after 2 "
+          f"warm-ups, synchronised around each; all {[round(t * 1e3, 2) for t in times]}), "
+          f"{1e3 / ms:.2f} steps/s; peak memory {peak / 2**30:.2f} GiB; profiled 3 steps: "
+          f"{prof_ms:.2f} ms a step, the card busy {busy_ms:.2f} ms ({busy_ms / prof_ms:.1%}), "
+          f"{n_launch:.0f} launches a step; host synchronisations in 3 + 3 steady steps: "
+          f"{'; '.join(syncs) if syncs else 'none'} on {card}", flush=True)
+    print(f"refine step: operations bound {bound_ms:.2f} ms = {step_flops / 1e12:.4f} TFLOP at "
+          f"f32 peak (G forward {g_fwd / 1e9:.2f} GFLOP x 3, D forward both scales "
+          f"{d_fwd / 1e9:.2f} x 6, VGG to relu5_1 {v_fwd / 1e9:.2f} x 3); the step is "
+          f"{bound_ms / ms:.1%} of its bound", flush=True)
+    if syncs:
+        fail(failures, f"a steady refine step synchronises with the host: {'; '.join(syncs)}")
+    out["step"] = dict(ms=ms, steps_per_s=1e3 / ms, bound_ms=bound_ms,
+                       tflop=step_flops / 1e12, peak_memory_bytes=peak,
+                       busy_share=busy_ms / prof_ms, launches=n_launch, host_syncs=len(syncs))
+
+    # 7. inference over the corpus frames, a flat directory
+    flat = os.path.join(tmp, "refine_frames", "nerf")
+    os.makedirs(flat)
+    for k, rel in enumerate(frames):
+        shutil.copy(os.path.join(train_dir, rel), os.path.join(flat, f"{k:03d}.png"))
+    t0 = time.perf_counter()
+    paths = run_refine.main(["--nerf_folder", flat, "--checkpoints_dir", ckpts,
+                             "--loadSize", str(REFINE_SIDE), "--device", str(dev)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    refined = sorted(os.listdir(os.path.join(tmp, "refine_frames", "refine")))
+    sizes = {image_size(p) for p in paths}
+    out["refine_s_per_frame"] = sec / max(len(paths), 1)
+    gen_ms = []
+    for _ in range(2 + REFINE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.refine_inference(state.g_params, a, cfg)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+    out["generator_ms"] = float(np.median(gen_ms[2:]))
+    print(f"refine: run_refine {len(paths)} frames at {sides} -> {sizes} in {sec:.2f} s "
+          f"({out['refine_s_per_frame']:.3f} s a frame with start-up: the seeded init, the "
+          f"checkpoint, PNG reads, bicubic upsampling and PNG writes on the host); the generator "
+          f"alone at {REFINE_SIDE}^2 {out['generator_ms']:.2f} ms (median of {REFINE_TIMED} after "
+          f"2 warm-ups, synchronised; {g_fwd / 1e9:.1f} GFLOP, bound "
+          f"{g_fwd / PEAK_F32 * 1e3:.2f} ms at f32 peak)", flush=True)
+    if len(refined) != len(frames) or sizes != {(REFINE_SIDE, REFINE_SIDE)}:
+        fail(failures, f"run_refine: {len(refined)} of {len(frames)} frames, sizes {sizes}")
+    return out
+
+
+def device_data_phase(failures, card, dev, render_flags, tmp):
+    """run_train with device_data = True at the full width of
+    configs/exp_mofanerf.txt from the training phase's last checkpoint, chunks
+    of DD_CHUNK steps that divide neither i_print nor i_weights: checkpoints
+    where the JAX loop's crossing rule puts them, the held-out render through
+    the field kernel counted; then the steady chunk's host synchronisations,
+    the device-data step against the host-data step in turns, and the
+    resident bytes against estimate_device_bytes."""
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.cli import run_train
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.data import device_data as ddm
+    from mofanerf_tpu_torch.data.facescape import (load_facescape_data, load_shape_codes,
+                                                   valid_persons)
+    from mofanerf_tpu_torch.data.landmarks import TrainRaySampler
+    from mofanerf_tpu_torch.data.prefetch import Prefetcher
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.train import loop, state as st
+    from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
+    from mofanerf_tpu_torch.utils.device import to_device
+
+    basedir = render_flags[render_flags.index("--basedir") + 1]
+    src = os.path.join(basedir, render_flags[render_flags.index("--expname") + 1], "checkpoints")
+    start = latest_step(src)
+    n_total = start + DD_STEPS
+    ckpt_dir = os.path.join(basedir, "smoke_dd", "checkpoints")
+    os.makedirs(ckpt_dir)
+    for f in (f"{start:06d}.pt", "occupancy_grid.npz"):
+        shutil.copy(os.path.join(src, f), ckpt_dir)
+    i_print, i_weights = DD_INTERVALS
+    flags = render_flags + ["--expname", "smoke_dd", "--device_data", "True", "--scan_steps",
+                            str(DD_CHUNK), "--i_print", str(i_print), "--i_weights",
+                            str(i_weights), "--i_testset", str(n_total), "--i_video", "1000000000",
+                            "--n_iters", str(n_total), "--device", str(dev)]
+    cfg = load_config(flags)
+    spec = cfg.model_spec()
+
+    def crossings(v):
+        """Where the JAX device loop fires a hook of interval v (its `crossed`)."""
+        hits, i = [], start
+        while i < n_total:
+            prev = i
+            i += min(DD_CHUNK - i % DD_CHUNK, n_total - i)
+            if i // v > prev // v:
+                hits.append(i)
+        return hits
+
+    H = TRAIN_SIDE
+    want = 2 * n_packets((H // 2) ** 2, spec.render.packet_size)   # the held-out image
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    t0 = time.perf_counter()
+    final = run_train.main(flags)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = fk.launch_count
+    exp = os.path.join(basedir, "smoke_dd")
+    log = open(os.path.join(exp, "train_log.txt")).read()
+    logged = [int(line.split()[1]) for line in log.splitlines() if line.startswith("Iteration")]
+    losses = [float(line.split()[3]) for line in log.splitlines() if line.startswith("Iteration")]
+    saved = sorted(int(f[:-3]) for f in os.listdir(ckpt_dir) if f.endswith(".pt"))
+    want_saved = sorted({start, *crossings(i_weights), n_total})
+    print(f"device data: run_train device_data = True, {DD_STEPS} steps from step {start} in "
+          f"chunks of {DD_CHUNK} in {sec:.2f} s with start-up, the held-out render and saves; "
+          f"logged at {logged} (the crossing rule: {crossings(i_print)}), checkpoints {saved} "
+          f"(the crossing rule: {want_saved}), losses {[round(v, 5) for v in losses]}; field "
+          f"kernel launches {got} (expected {want}: the held-out image) on {card}", flush=True)
+    if (logged != crossings(i_print) or saved != want_saved or got != want
+            or not all(np.isfinite(losses)) or int(final.step) != n_total
+            or "device-data path" not in log):
+        fail(failures, f"device-data run: logged {logged}, checkpoints {saved}, launches {got}, "
+                       f"step {int(final.step)}")
+    out = {"launches": got, "run_s": sec}
+
+    # the resident split against its estimate
+    ds = load_facescape_data(cfg.datadir, valid_persons(cfg.datadir, cfg.person_num),
+                             load_shape_codes(cfg.shape_codes_path), uvdir=cfg.uvdir)
+    hh, ww, focal = ds.hwf
+    K = np.array([[focal, 0, 0.5 * ww], [0, focal, 0.5 * hh], [0, 0, 1]], np.float32)
+    landmarks = np.load(cfg.landmarks_path) / 50.0
+    t0 = time.perf_counter()
+    dd, bias = ddm.build_device_dataset(ds, K, ds.i_split[0], landmarks=landmarks,
+                                        uv_size=spec.uv_size, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_uv = dd.uv_maps.shape[0]
+    est = ddm.estimate_device_bytes(dd.images.shape[0], hh, ww, n_uv, spec.uv_size)
+    out["resident_bytes"], out["estimate_bytes"] = ddm.resident_bytes(dd), est
+    print(f"device data: {dd.images.shape[0]} frames of {hh}x{ww} and {n_uv} UV maps resident, "
+          f"{out['resident_bytes']} bytes against estimate_device_bytes {est}; built in "
+          f"{t_build:.2f} s; bias {bias}", flush=True)
+
+    # the steady chunk: no host synchronisation; then both data paths in turns
+    scfg = ddm.DeviceSamplerConfig(n_rand=cfg.N_rand, H=hh, W=ww,
+                                   precrop_iters=cfg.precrop_iters,
+                                   precrop_frac=cfg.precrop_frac, lm_frac=cfg.lm_frac,
+                                   lm_frac_anneal_iters=cfg.lm_frac_anneal_iters, bias=bias)
+    Kt = to_device(K, dev)
+    tx = st.make_optimizer(cfg.lrate, cfg.lrate_decay)
+    state = restore_checkpoint(ckpt_dir, st.create_train_state(
+        torch.Generator().manual_seed(0), spec, cfg.lrate, cfg.lrate_decay, device=dev))
+    i = [n_total]
+
+    def device_chunk(n=DD_CHUNK):
+        nonlocal state
+        for _ in range(n):
+            batch = ddm.sample_batch_device(dd, Kt, i[0], scfg,
+                                            loop.device_generator(0, i[0], 0, dev))
+            state, _ = st.train_step(state, batch, loop.device_generator(0, i[0], 1, dev),
+                                     spec, tx)
+            i[0] += 1
+
+    sampler = TrainRaySampler(landmarks, hh, ww, lm_frac=cfg.lm_frac)
+    rng, uv_cache = np.random.default_rng(9), {}
+
+    def host_chunk(n=DD_CHUNK):
+        nonlocal state
+        batches = Prefetcher(lambda k: loop.make_batch(k, cfg, spec, ds, K, sampler, rng,
+                                                       uv_cache, dev), depth=2)
+        for k, batch in zip(range(i[0], i[0] + n), batches.iterate(i[0], i[0] + n)):
+            state, _ = st.train_step(state, batch, loop.step_generator(0, k, dev), spec, tx)
+        i[0] += n
+
+    device_chunk()
+    host_chunk()
+    syncs = host_syncs(device_chunk, n=1)
+    turns = {"device": [], "host": []}
+    for name in ("device", "host", "host", "device", "device", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (device_chunk if name == "device" else host_chunk)(DD_TIMED)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) / DD_TIMED * 1e3)
+    dev_ms, host_ms = (float(np.median(turns[k])) for k in ("device", "host"))
+    print(f"device data: a steady chunk of {DD_CHUNK} steps: host synchronisations "
+          f"{'; '.join(syncs) if syncs else 'none'}; back to back, {DD_TIMED} steps a turn, "
+          f"turns device/host/host/device/device/host: device-data step "
+          f"{[round(t, 2) for t in turns['device']]} ms, host-data step (batches on the "
+          f"prefetch thread) {[round(t, 2) for t in turns['host']]} ms; medians {dev_ms:.2f} "
+          f"against {host_ms:.2f} ms on {card}", flush=True)
+    if syncs:
+        fail(failures, f"a steady device-data chunk synchronises with the host: "
+                       f"{'; '.join(syncs)}")
+    out.update(device_step_ms=dev_ms, host_step_ms=host_ms, host_syncs=len(syncs),
+               build_s=t_build, bias=bias)
+    return out
+
+
 def train_step_timing(failures, card, dev, final, cfg, batches):
     """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
     samples, the fine pass on 128, N_rand 1024, UV 512, bf16) from the trained state:
@@ -1779,8 +2228,17 @@ def main(argv) -> int:
         fitted = fit_phase(failures, card, dev, render_flags, work)
         print(f"path phase (fitting, evaluate, export_grids): {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        refined = refine_phase(failures, card, dev, render_flags, work)
+        print(f"path phase (RefineNet): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        dd = device_data_phase(failures, card, dev, render_flags, work)
+        print(f"path phase (device-resident training data): {time.perf_counter() - t0:.1f} s",
+              flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
+    print(json.dumps({"refine": dict(refined, card=card)}), flush=True)
+    print(json.dumps({"train_device_data": dict(dd, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -1793,12 +2251,15 @@ def main(argv) -> int:
     packet_by_path = {"fit": sum(fit_launched[k] for k in
                                  ("fitting", "rendering", "rendering_modulation")) // 2,
                       "evaluate": sum(fit_launched[k] for k in
-                                      ("evaluate", "evaluate --render_factor 2")) // 2}
+                                      ("evaluate", "evaluate --render_factor 2")) // 2,
+                      "refine_corpus": refined["launches"]["refine_corpus"] // 2,
+                      "train_device_data": dd["launches"] // 2}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
                        ("--distill", "--distill_cond", "--distill_avatars")),
         "fast": launched["--fast"]["field"] + fit_launched["evaluate --fast"]
-        + fit_launched["export_grids' grid through render_frame_fast"]}
+        + fit_launched["export_grids' grid through render_frame_fast"]
+        + refined["launches"]["refine_corpus --fast"]}
     serve_by_path = {"serving": launches,
                      "distill": sum(v["serve"] for v in launched.values())}
     field_entries = []

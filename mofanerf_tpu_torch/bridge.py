@@ -7,7 +7,9 @@ student (`input`, `layers[i]`, `sigma`, `feat`, `view.w_dirs`, `rgb`, and
 `cond.{w_in, w_layers}` when cond_dim > 0) and the teacher parts the serving
 path reads: the ISM and the [21, 30] `exp_codes` bank; the whole teacher
 (`model_params_to_torch`) and a training state with its Adam moments
-(`train_state_to_torch`).
+(`train_state_to_torch`); RefineNet's flax variables (`refine_params_to_torch`:
+HWIO kernels to OIHW, transposed-conv kernels flipped), its VGG
+(`vgg_to_torch`) and its training state (`refine_state_to_torch`).
 
 Trees are also flattened by JAX key path (`['layers'][0]['w']`), in JAX's
 leaf order (dict keys sorted), which is how student artifacts name their
@@ -170,3 +172,100 @@ def fit_state_to_torch(state, device="cuda"):
                                {n: as_f32(getattr(adam.nu, n)) for n in names})
     codes = FitCodes(*[as_f32(getattr(state.codes, n)) for n in FitCodes._fields])
     return FitState(codes, opt, as_int(state.step))
+
+
+
+def _flax_paths(module) -> Dict[str, tuple]:
+    """{torch layer name: (flax path, kind)} of a RefineNet module. Its
+    convolutions, transposed convolutions and ResNet blocks are numbered in
+    the order the torch module registers them, which is the JAX module's
+    order of creation (`Conv_k`, `ConvTranspose_k`, `ResnetBlock_k`); the
+    discriminator's `scales.k` is `scale_k`."""
+    from mofanerf_tpu_torch.models.refine.discriminator import MultiscaleDiscriminator
+    from mofanerf_tpu_torch.models.refine.generator import ResnetBlock
+
+    out: Dict[str, tuple] = {}
+    counts: Dict[str, int] = {}
+
+    def nested(prefix, child, flax_name):
+        for name, (path, kind) in _flax_paths(child).items():
+            out[f"{prefix}.{name}"] = ((flax_name,) + path, kind)
+
+    def walk(m, prefix):
+        for name, child in m.named_children():
+            here = f"{prefix}{name}"
+            if isinstance(m, MultiscaleDiscriminator) and name == "scales":
+                for k, scale in enumerate(child):
+                    nested(f"{here}.{k}", scale, f"scale_{k}")
+                continue
+            kind = ("ConvTranspose" if isinstance(child, torch.nn.ConvTranspose2d)
+                    else "Conv" if isinstance(child, torch.nn.Conv2d)
+                    else "ResnetBlock" if isinstance(child, ResnetBlock) else None)
+            if kind is None:
+                walk(child, here + ".")
+                continue
+            k = counts.get(kind, 0)
+            counts[kind] = k + 1
+            if kind == "ResnetBlock":
+                nested(here, child, f"ResnetBlock_{k}")
+            else:
+                out[here] = ((f"{kind}_{k}",), kind)
+
+    walk(module, "")
+    return out
+
+
+def refine_params_to_torch(variables, module, device="cuda") -> Params:
+    """The flax variables of a JAX RefineNet module (`{"params": ...}`, numpy
+    leaves) -> the state dict of the port's `module` (GlobalGenerator,
+    LocalEnhancer, MultiscaleDiscriminator, InstanceFeatureEncoder): HWIO
+    kernels to OIHW, transposed-conv kernels flipped in both spatial axes and
+    laid out [in, out, kh, kw] (models/refine/generator.py), checked against
+    the module's shapes."""
+    p = variables["params"]
+    state = {}
+    for name, (path, kind) in _flax_paths(module).items():
+        leaf = p
+        for key in path:
+            leaf = leaf[key]
+        kernel = np.asarray(leaf["kernel"], np.float32)
+        if kind == "ConvTranspose":
+            kernel = kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            kernel = kernel.transpose(3, 2, 0, 1)
+        state[f"{name}.weight"] = np.ascontiguousarray(kernel)
+        state[f"{name}.bias"] = np.asarray(leaf["bias"], np.float32)
+    _check_shapes(state, {k: tuple(v.shape) for k, v in module.state_dict().items()})
+    return to_torch(state, device)
+
+
+def vgg_to_torch(variables, device="cuda") -> Params:
+    """The JAX VGG19Features variables (numpy leaves) -> the port's state dict."""
+    from mofanerf_tpu_torch.models.refine.losses import vgg_from_jax_layout
+
+    return to_torch(vgg_from_jax_layout(variables), device)
+
+
+def refine_state_to_torch(state, cfg, device="cuda"):
+    """A JAX RefineState (numpy leaves: `jax.tree.map(np.asarray, state)`) ->
+    the port's RefineState: both players' params, and optax.adam's state
+    `(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))` as one
+    AdamState each (the two counts must agree)."""
+    from mofanerf_tpu_torch.train.refine import RefineState, build_models
+    from mofanerf_tpu_torch.train.state import AdamState
+
+    dev = resolve_device(device)
+    g, d = build_models(cfg)
+    as_int = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32, device=dev)
+
+    def opt(o, module):
+        adam, sched = o
+        if int(np.asarray(adam.count)) != int(np.asarray(sched.count)):
+            raise ValueError(f"optimiser counts differ: adam {int(np.asarray(adam.count))}, "
+                             f"schedule {int(np.asarray(sched.count))}")
+        return AdamState(as_int(adam.count), refine_params_to_torch(adam.mu, module, dev),
+                         refine_params_to_torch(adam.nu, module, dev))
+
+    return RefineState(refine_params_to_torch(state.g_params, g, dev),
+                       refine_params_to_torch(state.d_params, d, dev),
+                       opt(state.g_opt, g), opt(state.d_opt, d), as_int(state.step))

@@ -2,13 +2,15 @@
 
 A background thread prepares the next batches' host work (disk reads,
 decoding, index sampling, the copies to the card) while the card runs the
-current step.
+current step. `ImagePool` is RefineNet's replay buffer of fakes.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Callable, Iterator
+
+import numpy as np
 
 
 class Prefetcher:
@@ -41,3 +43,31 @@ class Prefetcher:
                 yield item
         finally:
             self._stop.set()
+
+
+class ImagePool:
+    """Replay buffer for the discriminator's fakes (pix2pixHD's ImagePool).
+    pool_size 0, the reference's setting, passes images through. Its draws
+    are the JAX package's, from `np.random.default_rng(seed)` in the same
+    order."""
+
+    def __init__(self, pool_size: int = 0, seed: int = 0):
+        self.pool_size = pool_size
+        self.images = []
+        self.rng = np.random.default_rng(seed)
+
+    def query(self, images):
+        if self.pool_size == 0:
+            return images
+        out = []
+        for img in np.asarray(images):
+            if len(self.images) < self.pool_size:
+                self.images.append(img)
+                out.append(img)
+            elif self.rng.uniform() > 0.5:
+                idx = int(self.rng.integers(self.pool_size))
+                out.append(self.images[idx])
+                self.images[idx] = img
+            else:
+                out.append(img)
+        return np.stack(out)

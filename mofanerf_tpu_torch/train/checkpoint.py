@@ -3,7 +3,8 @@ mofanerf_tpu/train/checkpoint.py).
 
 One file a step, `<ckpt_dir>/<step:06d>.pt`: a flat dict of CPU tensors
 keyed by JAX key paths (`['params']['coarse']['xyz']['b']`,
-`['opt_state']['mu'][...]`, `['opt_state']['count']`, `['step']`). A save
+`['opt_state']['mu'][...]`, `['opt_state']['count']`, `['step']`; a
+RefineNet state's `['g_params']['stem.weight']`, `['d_opt']['nu'][...]`). A save
 writes a temporary file and renames it, so a save at an existing step
 replaces it whole. The JAX package's Orbax step directories are never taken
 for one: the port does not read them yet (ROADMAP A3, queued under A11).
@@ -17,13 +18,16 @@ from typing import List
 import torch
 
 from mofanerf_tpu_torch.render.renderer import init_model_params
+from mofanerf_tpu_torch.train.refine import RefineState, refine_from_tree, refine_tree
 from mofanerf_tpu_torch.train.state import AdamState, TrainState
 from mofanerf_tpu_torch.utils.tree import flatten_with_keystr, tree_unflatten
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 
-def _as_tree(state: TrainState) -> dict:
+def _as_tree(state) -> dict:
+    if isinstance(state, RefineState):
+        return refine_tree(state)
     opt = state.opt_state
     return {"params": state.params,
             "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
@@ -59,10 +63,22 @@ def orbax_steps(ckpt_dir: str) -> List[int]:
                   if d.isdigit() and os.path.isdir(os.path.join(ckpt_dir, d)))
 
 
+def latest_port_step(ckpt_dir: str) -> int | None:
+    """`latest_step`, refusing a directory of the JAX package's Orbax steps
+    only (naming the ROADMAP item that lifts it) rather than taking it for an
+    empty one."""
+    step = latest_step(ckpt_dir)
+    if step is None and orbax_steps(ckpt_dir):
+        raise SystemExit(
+            f"{ckpt_dir} holds only Orbax checkpoints of the JAX package; the port reads its "
+            "own .pt checkpoints, and an Orbax reader is ROADMAP A3 (queued under A11)")
+    return step
+
+
 def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
-    """Restore into the structure of `target`: a TrainState, or a model
-    param tree to restore only the params. Tensors land on the device of
-    target's leaves. step=None restores the newest."""
+    """Restore into the structure of `target`: a TrainState or a RefineState,
+    or a model param tree to restore only the params. Tensors land on the
+    device of target's leaves. step=None restores the newest."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -74,7 +90,7 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     path = os.path.join(os.path.abspath(ckpt_dir), f"{step:06d}.pt")
     flat = torch.load(path, map_location="cpu", weights_only=True)
-    whole = isinstance(target, TrainState)
+    whole = isinstance(target, (TrainState, RefineState))
     tree = _as_tree(target) if whole else {"params": target}
     want = flatten_with_keystr(tree)
     missing = [k for k, _ in want if k not in flat]
@@ -92,6 +108,8 @@ def restore_checkpoint(ckpt_dir: str, target, step: int | None = None):
     out = tree_unflatten(tree, leaves)
     if not whole:
         return out["params"]
+    if isinstance(target, RefineState):
+        return refine_from_tree(out)
     opt = out["opt_state"]
     return TrainState(out["params"], AdamState(opt["count"], opt["mu"], opt["nu"]), out["step"])
 
@@ -101,11 +119,7 @@ def load_model(ckpt_dir: str, spec, device="cuda"):
     ckpt_dir, or seeded weights (a CPU generator seeded 0) and None when there
     is none. A directory of the JAX package's Orbax steps only is refused,
     naming the ROADMAP item that lifts it."""
-    step = latest_step(ckpt_dir)
-    if step is None and orbax_steps(ckpt_dir):
-        raise SystemExit(
-            f"{ckpt_dir} holds only Orbax checkpoints of the JAX package; the port reads its "
-            "own .pt checkpoints, and an Orbax reader is ROADMAP A3 (queued under A11)")
+    step = latest_port_step(ckpt_dir)
     params = init_model_params(torch.Generator().manual_seed(0), spec, device=device)
     if step is not None:
         params = restore_checkpoint(ckpt_dir, params, step)

@@ -15,12 +15,16 @@ re-probes the density under the step's conditioning into an EMA, and it
 saves the grid as `occupancy_grid.npz` beside every checkpoint; a resumed
 run resumes the grid. `run_render --fast` and distillation read it.
 
-Not ported yet, and refused naming the ROADMAP item: the device-resident
-data path (`device_data`, A5).
+With `device_data` the training split is kept on the card and each batch
+is drawn there (data/device_data.py): `_train_device_data` fires chunks of
+`scan_steps` steps back to back with no host read inside a chunk, and
+fires the interval hooks whenever a chunk crosses an interval, so the
+checkpoints land on the JAX loop's steps whatever `scan_steps` is.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 from typing import Optional
@@ -29,6 +33,8 @@ import numpy as np
 import torch
 
 from mofanerf_tpu_torch.config import Config
+from mofanerf_tpu_torch.data.device_data import (DeviceSamplerConfig, build_device_dataset,
+                                                 sample_batch_device)
 from mofanerf_tpu_torch.data.facescape import (FacescapeDataset, load_facescape_data,
                                                load_shape_codes, read_image, valid_persons)
 from mofanerf_tpu_torch.data.landmarks import TrainRaySampler, anneal_lm_frac
@@ -42,7 +48,7 @@ from mofanerf_tpu_torch.train.checkpoint import (latest_step, orbax_steps, resto
                                                  save_checkpoint)
 from mofanerf_tpu_torch.train.state import (Batch, create_train_state, make_optimizer,
                                             train_step)
-from mofanerf_tpu_torch.utils.device import resolve_device
+from mofanerf_tpu_torch.utils.device import resolve_device, to_device
 from mofanerf_tpu_torch.utils.image_io import write_png
 from mofanerf_tpu_torch.utils.logger import TrainLogger
 from mofanerf_tpu_torch.utils.metrics import to8b
@@ -96,10 +102,6 @@ def step_generator(seed: int, i: int, device) -> torch.Generator:
 def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cuda"):
     """Train from cfg; resumes from the newest `.pt` in the experiment's
     checkpoints unless `no_reload`. Returns the final TrainState."""
-    if cfg.device_data:
-        raise NotImplementedError(
-            "device_data: the device-resident data path is ported with ROADMAP A5's "
-            "data/device_data.py; the host-data path (device_data = False) trains")
     dev = resolve_device(device)
     spec = cfg.model_spec()
     exp_dir = os.path.join(cfg.basedir, cfg.expname)
@@ -153,7 +155,7 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
                 density_ema = ema
             logger.note("resumed occupancy grid")
 
-    def save(step):
+    def save(step, state, grid, density_ema):
         path = save_checkpoint(ckpt_dir, state, step)
         if grid is not None:
             save_grid(grid_path, grid, density_ema)
@@ -165,6 +167,10 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
     # prefetch thread
     rng_eval = np.random.default_rng(seed + 2)
     n_total = n_iters if n_iters is not None else cfg.n_iters
+    if cfg.device_data:
+        return _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir,
+                                  grid, density_ema, save, start, n_total, seed, uv_cache,
+                                  rng_eval, dev)
     t0 = time.time()
     batches = Prefetcher(
         lambda i: make_batch(i, cfg, spec, ds, K, sampler, rng, uv_cache, dev), depth=2,
@@ -184,7 +190,7 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
             logger.write(i + 1, Loss=loss, PSNR=psnr, step_ok=ok)
 
         if (i + 1) % cfg.i_weights == 0:
-            path = save(i + 1)
+            path = save(i + 1, state, grid, density_ema)
             logger.note(f"checkpoint saved: {path}")
 
         if (i + 1) % cfg.i_testset == 0 and len(ds.i_split[2]) > 0:
@@ -193,7 +199,89 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
         if (i + 1) % cfg.i_video == 0:
             _render_orbit(cfg, spec, state, ds, rng_eval, exp_dir, i + 1, uv_cache, dev)
 
-    save(n_total)
+    save(n_total, state, grid, density_ema)
+    logger.note("training finished")
+    return state
+
+
+def _auto_scan_steps(cfg: Config, n_total: int) -> int:
+    """Steps a chunk of the device-data path: the gcd of every active
+    logging / checkpoint interval (so that chunk ends land on them), capped
+    at 100."""
+    g = 0
+    for v in (cfg.i_print, cfg.i_weights, cfg.i_testset, cfg.i_video, cfg.i_grid):
+        if 0 < v <= n_total:
+            g = math.gcd(g, v)
+    return max(1, min(g or 100, 100))
+
+
+def device_generator(seed: int, i: int, use: int, device) -> torch.Generator:
+    """The device-data path's draws of iteration i: use 0 its batch, 1 its
+    step, 2 the grid update's batch (the JAX loop folds i, then the use, into
+    PRNGKey(seed * 7919 + 13))."""
+    base = (seed * 7919 + 13) * 1_000_003 + i
+    return torch.Generator(device=device).manual_seed(3 * base + use)
+
+
+def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, grid,
+                       density_ema, save, start, n_total, seed, uv_cache, rng_eval, dev):
+    """The device-resident loop: the train split on the card, batches drawn
+    there, chunks of C steps fired back to back. Nothing is read back inside
+    a chunk: the metrics are read only when a chunk crosses `i_print`, and
+    each interval hook fires when the chunk crossed a multiple of its
+    interval, not only when a chunk ends on one."""
+    H, W, _ = ds.hwf
+    dd, bias = build_device_dataset(
+        ds, K, ds.i_split[0], landmarks=landmarks, uv_size=spec.uv_size,
+        half_res=cfg.half_res, white_bkgd=cfg.white_bkgd, seed=seed,
+        bias_override=cfg.ray_bias, device=dev)
+    scfg = DeviceSamplerConfig(
+        n_rand=cfg.N_rand, H=H, W=W, precrop_iters=cfg.precrop_iters,
+        precrop_frac=cfg.precrop_frac, lm_frac=cfg.lm_frac,
+        lm_frac_anneal_iters=cfg.lm_frac_anneal_iters, bias=bias)
+    Kt = to_device(K, dev)
+    C = cfg.scan_steps if cfg.scan_steps > 0 else _auto_scan_steps(cfg, n_total)
+    logger.note(f"device-data path: {dd.images.shape[0]} frames resident, bias={bias}, "
+                f"{C} steps a chunk")
+
+    t0 = time.time()
+    i = start
+    metrics = None
+    while i < n_total:
+        prev = i
+        for _ in range(min(C - i % C, n_total - i)):
+            batch = sample_batch_device(dd, Kt, i, scfg, device_generator(seed, i, 0, dev))
+            state, metrics = train_step(state, batch, device_generator(seed, i, 1, dev),
+                                        spec, tx)
+            i += 1
+
+        def crossed(v: int) -> bool:
+            return v > 0 and (i // v) > (prev // v)
+
+        if grid is not None and i >= cfg.grid_warmup and crossed(cfg.i_grid):
+            gbatch = sample_batch_device(dd, Kt, i, scfg, device_generator(seed, i, 2, dev))
+            grid, density_ema = _update_grid(cfg, spec, state.params, gbatch, grid,
+                                             density_ema)
+
+        if crossed(cfg.i_print):
+            loss, psnr = float(metrics["loss"]), float(metrics["psnr"])
+            ok = int(metrics["step_ok"])
+            rate = (i - start) / (time.time() - t0)
+            print(f"[TRAIN] iter {i} loss {loss:.5f} psnr {psnr:.2f} ok {ok} it/s {rate:.2f}",
+                  flush=True)
+            logger.write(i, Loss=loss, PSNR=psnr, step_ok=ok)
+
+        if crossed(cfg.i_weights):
+            path = save(i, state, grid, density_ema)
+            logger.note(f"checkpoint saved: {path}")
+
+        if crossed(cfg.i_testset) and len(ds.i_split[2]) > 0:
+            _render_test_image(spec, state, ds, K, rng_eval, exp_dir, i, uv_cache, dev)
+
+        if crossed(cfg.i_video):
+            _render_orbit(cfg, spec, state, ds, rng_eval, exp_dir, i, uv_cache, dev)
+
+    save(n_total, state, grid, density_ema)
     logger.note("training finished")
     return state
 

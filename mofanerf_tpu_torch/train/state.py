@@ -118,7 +118,7 @@ class Batch(NamedTuple):
     shape_code: torch.Tensor  # [shape_dim]
     exp_type: torch.Tensor    # int scalar
     uv_map: torch.Tensor      # [uv_size, uv_size, 3]
-    coords: Any = None        # [N, 2] int32 (row, col) the rays go through (host numpy)
+    coords: Any = None        # [N, 2] (row, col) of the rays: host int32, or f32 on the device
 
 
 def loss_fn(params: Params, spec: MoFaNeRF, batch: Batch,

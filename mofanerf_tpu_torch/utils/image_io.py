@@ -760,3 +760,112 @@ def resize_linear(img: np.ndarray, size) -> np.ndarray:
     if (out_h, out_w) == (h, w):
         return img.copy()
     return _separable(img, _linear_weights(h, out_h), _linear_weights(w, out_w))
+
+
+def _area_taps(src: int, dst: int):
+    """OpenCV's shrinking INTER_AREA taps: ([dst, T] source index, [dst, T]
+    f32 weight), each output's taps in OpenCV's order, unused ones weight 0."""
+    scale = src / dst
+    taps = []
+    for dx in range(dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src - fsx1)
+        sx1, sx2 = int(np.ceil(fsx1)), int(np.floor(fsx2))
+        sx2 = min(sx2, src - 1)
+        sx1 = min(sx1, sx2)
+        row = []
+        if sx1 - fsx1 > 1e-3:
+            row.append((sx1 - 1, (sx1 - fsx1) / cell))
+        row += [(sx, 1.0 / cell) for sx in range(sx1, sx2)]
+        if fsx2 - sx2 > 1e-3:
+            row.append((sx2, min(min(fsx2 - sx2, 1.0), cell) / cell))
+        taps.append(row)
+    T = max(len(r) for r in taps)
+    idx = np.zeros((dst, T), np.int64)
+    wgt = np.zeros((dst, T), np.float32)
+    for dx, row in enumerate(taps):
+        for t, (sx, a) in enumerate(row):
+            idx[dx, t], wgt[dx, t] = sx, a
+    return idx, wgt
+
+
+def resize_area_u8(img: np.ndarray, size) -> np.ndarray:
+    """`cv2.resize(img, size, interpolation=cv2.INTER_AREA)` for a uint8
+    [H, W] or [H, W, C] image, byte for byte; `size` is (width, height).
+
+    cv2 takes three paths, each reproduced with its arithmetic: an integer
+    reduction sums the block in integers, then rounds half up for 2 x 2 (its
+    vector code adds 2 and shifts by 2) and otherwise rounds the f32 product
+    of the sum and 1/area to nearest even; any other reduction accumulates
+    each row's taps, then the rows, in f32 in OpenCV's order and rounds to
+    nearest even; an enlargement is its fixed-point linear path (weights in
+    2048ths, the horizontal pass exact in integers, the vertical pass as its
+    vector code runs it: ((b * (S >> 4)) >> 16) a tap, summed, + 2, >> 2)."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_h, out_w) == (h, w):
+        return img.copy()
+    if out_h <= h and out_w <= w:
+        if h % out_h == 0 and w % out_w == 0:
+            sy, sx = h // out_h, w // out_w
+            sums = img.astype(np.int64).reshape((out_h, sy, out_w, sx) + img.shape[2:]).sum((1, 3))
+            if (sy, sx) == (2, 2):
+                return ((sums + 2) >> 2).astype(np.uint8)
+            out = np.rint(sums.astype(np.float32) * np.float32(1.0 / (sy * sx)))
+            return np.clip(out, 0, 255).astype(np.uint8)
+        (yi, yw), (xi, xw) = _area_taps(h, out_h), _area_taps(w, out_w)
+        f = img.astype(np.float32)
+        rows = np.zeros((h, out_w) + img.shape[2:], np.float32)
+        for t in range(xi.shape[1]):
+            wt = xw[:, t].reshape((1, out_w) + (1,) * (img.ndim - 2))
+            rows += f[:, xi[:, t]] * wt
+        acc = np.zeros((out_h, out_w) + img.shape[2:], np.float32)
+        for t in range(yi.shape[1]):
+            wt = yw[:, t].reshape((out_h, 1) + (1,) * (img.ndim - 2))
+            acc += wt * rows[yi[:, t]]
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    wy = np.rint(_area_up_weights(h, out_h) * 2048).astype(np.int64)
+    wx = np.rint(_area_up_weights(w, out_w) * 2048).astype(np.int64)
+    rows = np.einsum("kl,il...->ik...", wx, img.astype(np.int64)) >> 4
+    acc = np.zeros((out_h,) + rows.shape[1:], np.int64)
+    for i in range(out_h):
+        for j in np.nonzero(wy[i])[0]:
+            acc[i] += (wy[i, j] * rows[j]) >> 16
+    return np.clip((acc + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# cv2.resize(..., interpolation=INTER_CUBIC)
+
+
+def _cubic_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] weights of OpenCV's INTER_CUBIC: taps sx - 1 .. sx + 2 around
+    the half-pixel source position's floor sx, Keys' kernel with a = -0.75 in
+    f32 (the fourth weight 1 minus the other three), taps past an edge
+    clamped to the edge pixel."""
+    A = np.float32(-0.75)
+    one = np.float32(1.0)
+    out = np.zeros((dst, src), np.float64)
+    for dx in range(dst):
+        fx = np.float32((dx + 0.5) * (src / dst) - 0.5)
+        sx = int(np.floor(fx))
+        x = np.float32(fx - np.float32(sx))
+        c0 = ((A * (x + one) - 5 * A) * (x + one) + 8 * A) * (x + one) - 4 * A
+        c1 = ((A + 2) * x - (A + 3)) * x * x + one
+        c2 = ((A + 2) * (one - x) - (A + 3)) * (one - x) * (one - x) + one
+        c3 = one - c0 - c1 - c2
+        for k, c in enumerate((c0, c1, c2, c3)):
+            out[dx, min(max(sx - 1 + k, 0), src - 1)] += float(c)
+    return out
+
+
+def resize_cubic(img: np.ndarray, size) -> np.ndarray:
+    """`cv2.resize(img, size, interpolation=cv2.INTER_CUBIC)` for a float
+    [H, W] or [H, W, C] image; `size` is (width, height). It overshoots the
+    input's range near edges: callers clip."""
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_h, out_w) == (h, w):
+        return img.copy()
+    return _separable(img, _cubic_weights(h, out_h), _cubic_weights(w, out_w))

@@ -41,7 +41,8 @@ def _imported_names(path):
 def test_no_jax_imports_in_source(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu"), (path, name)
+        assert root not in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu", "cv2", "imageio",
+                            "PIL"), (path, name)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -50,20 +51,28 @@ def test_every_module_imports_with_jax_blocked():
     assert {"mofanerf_tpu_torch.train.distill", "mofanerf_tpu_torch.ops.occupancy",
             "mofanerf_tpu_torch.train.fit", "mofanerf_tpu_torch.train.fit_loop",
             "mofanerf_tpu_torch.cli.run_fit", "mofanerf_tpu_torch.cli.evaluate",
-            "mofanerf_tpu_torch.cli.export_grids"} <= set(mods)
+            "mofanerf_tpu_torch.cli.export_grids", "mofanerf_tpu_torch.data.device_data",
+            "mofanerf_tpu_torch.models.refine.generator",
+            "mofanerf_tpu_torch.models.refine.discriminator",
+            "mofanerf_tpu_torch.models.refine.encoder", "mofanerf_tpu_torch.models.refine.losses",
+            "mofanerf_tpu_torch.train.refine", "mofanerf_tpu_torch.data.refine_dataset",
+            "mofanerf_tpu_torch.utils.visualizer", "mofanerf_tpu_torch.cli.render_refine_trainset",
+            "mofanerf_tpu_torch.cli.prepare_refine_trainset",
+            "mofanerf_tpu_torch.cli.run_train_refinenet",
+            "mofanerf_tpu_torch.cli.run_refine"} <= set(mods)
     code = f"""
 import sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu"):
+        if root in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu", "cv2", "imageio", "PIL"):
             raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, Block())
 for m in list(sys.modules):
-    if m.split(".")[0] in ("jax", "jaxlib", "mofanerf_tpu"):
+    if m.split(".")[0] in ("jax", "jaxlib", "mofanerf_tpu", "cv2", "imageio", "PIL"):
         del sys.modules[m]
 import importlib
 for m in {mods!r}:
@@ -242,3 +251,33 @@ def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
     # a student distilled from the teacher and served, with no artifact path
     student = run_render.main(argv + ["--person", "1", "--distill", "--distill_steps", "2"])
     assert student.shape == (2, 8, 8, 3) and np.isfinite(student).all()
+
+
+def test_refine_and_device_data_entry_points_default_to_the_card(tmp_path):
+    """This slice's entry points ask for the card too: the device-resident
+    dataset, the refiner's state, and the four RefineNet CLIs."""
+    from types import SimpleNamespace
+
+    from mofanerf_tpu_torch.cli import (prepare_refine_trainset, render_refine_trainset,
+                                        run_refine, run_train_refinenet)
+    from mofanerf_tpu_torch.data.device_data import build_device_dataset
+    from mofanerf_tpu_torch.train.refine import RefineConfig, init_refine_state, init_vgg_params
+
+    ds = SimpleNamespace(image_paths=[], id_codes=np.zeros(0), uv_paths={})
+    calls = [
+        lambda: build_device_dataset(ds, np.eye(3), np.zeros(0, np.int64)),
+        lambda: init_refine_state(torch.Generator().manual_seed(0), RefineConfig(ngf=4)),
+        lambda: init_vgg_params(torch.Generator().manual_seed(0)),
+        lambda: render_refine_trainset.main(["--out_dir", str(tmp_path / "c")]),
+        lambda: run_train_refinenet.main(["--dataroot", str(tmp_path)]),
+        lambda: run_refine.main(["--nerf_folder", str(tmp_path)]),
+    ]
+    if torch.cuda.is_available():
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # the ground-truth pairing is host work: it asks for no device
+    with pytest.raises(SystemExit, match="gt_manifest"):
+        prepare_refine_trainset.main(["--renders_dir", str(tmp_path), "--out_dir",
+                                      str(tmp_path / "gt")])

@@ -11,8 +11,10 @@ rays, f32).
   drawn from its key and injected (see tests/test_torch_train_state.py).
 - `train()` on the CPU writes args.txt, config.txt, the log, the `.pt`
   checkpoints, the held-out PNG and the orbit PNGs, and resumes.
-- `device_data` raises naming ROADMAP A5 (the grid upkeep of `i_grid > 0` is
-  tested in tests/test_torch_occupancy.py)."""
+- Either data path refuses a directory of Orbax steps only, naming ROADMAP
+  A3 (the grid upkeep of `i_grid > 0` is tested in
+  tests/test_torch_occupancy.py, the device-resident path in
+  tests/test_torch_device_data.py)."""
 import os
 
 import jax
@@ -161,8 +163,16 @@ def test_train_writes_its_outputs_and_resumes(tmp_path):
     assert "000004.pt" in os.listdir(exp / "checkpoints")
 
 
-@pytest.mark.parametrize("flag,item", [({"device_data": True}, "ROADMAP A5")])
+@pytest.mark.parametrize("flag,item", [({"device_data": False}, "ROADMAP A3"),
+                                       ({"device_data": True}, "ROADMAP A3")])
 def test_unported_options_raise_naming_the_roadmap_item(tmp_path, flag, item):
-    cfg = tconfig.Config(**{**FLAGS, **flag, "basedir": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match=item):
+    """What the loop does not read yet, on either data path: a checkpoint
+    directory of the JAX package's Orbax steps only (the device-resident
+    path, refused here until ROADMAP A5's port, now trains:
+    tests/test_torch_device_data.py)."""
+    d = tmp_path / "data"
+    tfs.make_synthetic_dataset(str(d), n_ids=2, n_train=1, n_test=1, hw=16)
+    cfg = tconfig.Config(**{**FLAGS, **flag, **_paths(d), "basedir": str(tmp_path)})
+    os.makedirs(tmp_path / cfg.expname / "checkpoints" / "000100")
+    with pytest.raises(FileNotFoundError, match=item):
         tloop.train(cfg, n_iters=1, device="cpu")
