@@ -155,6 +155,11 @@ FIT_WARMUP, FIT_TIMED, FIT_PROFILED = 2, 6, 3
 # the RefineNet phase: the corpus's render side, the refiner's side (loadSize), its
 # training steps and the steady step's timed steps
 REFINE_RES, REFINE_SIDE, REFINE_STEPS, REFINE_TIMED = 256, 512, 10, 6
+# the wild-photo phase: the face family's side, identities, expressions, every k-th view of
+# 120 and held-out views an expression; photo A's canvas (w, h) and its similarity (degrees,
+# scale); run_fit's iterations; the mean |A - B| allowed between the two aligned photos
+WILD_SIDE, WILD_IDS, WILD_EXPS, WILD_STRIDE, WILD_HOLDOUT = 512, 2, (0, 1), 4, 4
+WILD_CANVAS, WILD_WARP, WILD_FIT_ITERS, WILD_AB_TOL = (640, 480), (12.0, 0.75), 20, 0.02
 # the device-data phase: steps after the training phase's last checkpoint, steps a chunk,
 # (i_print, i_weights) that the chunk divides neither of, steps a timed turn
 DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
@@ -1626,10 +1631,10 @@ def fit_phase(failures, card, dev, render_flags, tmp):
     return out
 
 
-def conv_flops(module, shape):
-    """Forward operations of a RefineNet module's convolutions on an input of
-    `shape` (2 x multiply-adds; a transposed convolution counted on its input),
-    from the shapes alone: the module runs on the meta device."""
+def conv_flops(module, *shapes):
+    """Forward operations of a module's convolutions on inputs of `shapes`
+    (2 x multiply-adds; a transposed convolution counted on its input), from
+    the shapes alone: the module runs on the meta device."""
     import torch
 
     total = [0]
@@ -1646,7 +1651,7 @@ def conv_flops(module, shape):
     hooks = [m.register_forward_hook(hook) for m in module.modules()
              if isinstance(m, torch.nn.Conv2d)]
     try:
-        module(torch.zeros(shape, device="meta"))
+        module(*[torch.zeros(s, device="meta") for s in shapes])
     finally:
         for h in hooks:
             h.remove()
@@ -2050,6 +2055,485 @@ def device_data_phase(failures, card, dev, render_flags, tmp):
     return out
 
 
+def _random_conv(sd, g, key, cout, cin, k, bias=False):
+    import torch
+
+    sd[f"{key}.weight"] = torch.randn(cout, cin, k, k, generator=g) * (0.4 / np.sqrt(cin * k * k))
+    if bias:
+        sd[f"{key}.bias"] = torch.randn(cout, generator=g) * 0.1
+
+
+def _random_bn(sd, g, key, c):
+    import torch
+
+    sd[f"{key}.weight"] = 1.0 + torch.randn(c, generator=g) * 0.1
+    sd[f"{key}.bias"] = torch.randn(c, generator=g) * 0.1
+    sd[f"{key}.running_mean"] = torch.randn(c, generator=g) * 0.1
+    sd[f"{key}.running_var"] = 0.5 + torch.rand(c, generator=g)
+
+
+def reference_bisenet_sd(g, n_classes=19):
+    """A seeded random state dict in the key layout of the reference's
+    Seg_79999_iter.pth (BiSeNet, SegmentCode/model.py + resnet.py), with
+    BatchNorm running statistics."""
+    sd = {}
+    conv = lambda *a: _random_conv(sd, g, *a)
+    bn = lambda *a: _random_bn(sd, g, *a)
+
+    def convbn(key, cout, cin, k):
+        conv(f"{key}.conv", cout, cin, k)
+        bn(f"{key}.bn", cout)
+
+    conv("cp.resnet.conv1", 64, 3, 7)
+    bn("cp.resnet.bn1", 64)
+    for layer, (cin, cout) in {"layer1": (64, 64), "layer2": (64, 128),
+                               "layer3": (128, 256), "layer4": (256, 512)}.items():
+        for i in (0, 1):
+            p = f"cp.resnet.{layer}.{i}"
+            conv(f"{p}.conv1", cout, cin if i == 0 else cout, 3)
+            bn(f"{p}.bn1", cout)
+            conv(f"{p}.conv2", cout, cout, 3)
+            bn(f"{p}.bn2", cout)
+            if i == 0 and cin != cout:
+                conv(f"{p}.downsample.0", cout, cin, 1)
+                bn(f"{p}.downsample.1", cout)
+    for arm, cin in (("arm16", 256), ("arm32", 512)):
+        convbn(f"cp.{arm}.conv", 128, cin, 3)
+        conv(f"cp.{arm}.conv_atten", 128, 128, 1)
+        bn(f"cp.{arm}.bn_atten", 128)
+    convbn("cp.conv_head32", 128, 128, 3)
+    convbn("cp.conv_head16", 128, 128, 3)
+    convbn("cp.conv_avg", 128, 512, 1)
+    convbn("ffm.convblk", 256, 256, 1)
+    conv("ffm.conv1", 64, 256, 1)
+    conv("ffm.conv2", 256, 64, 1)
+    convbn("conv_out.conv", 256, 256, 3)
+    conv("conv_out.conv_out", n_classes, 256, 1)
+    return sd
+
+
+def reference_hourglass_sd(g, base=16):
+    """A seeded random state dict in the key layout of the reference's
+    trained_model_03.t7 (defineHourglass_512_gray_skip.py), `shortcuts`
+    registered on every block as the reference does."""
+    import torch
+
+    sd = {}
+    conv = lambda *a, **k: _random_conv(sd, g, *a, **k)
+    bn = lambda *a: _random_bn(sd, g, *a)
+
+    def block(prefix, cin, cout, with_bn):
+        conv(f"{prefix}.conv1", cout, cin, 3)
+        conv(f"{prefix}.conv2", cout, cout, 3)
+        conv(f"{prefix}.shortcuts", cout, cin, 1)
+        if with_bn:
+            bn(f"{prefix}.bn1", cout)
+            bn(f"{prefix}.bn2", cout)
+
+    ncs = [base, 2 * base, 4 * base, 8 * base + 27]
+    conv("pre_conv", base, 1, 5, bias=True)
+    bn("pre_bn", base)
+    path = {3: "HG3", 2: "HG3.middle", 1: "HG3.middle.middle", 0: "HG3.middle.middle.middle"}
+    for level, p in path.items():
+        cin = base if level == 3 else ncs[2 - level]
+        block(f"{p}.upper", cin, cin, False)
+        block(f"{p}.low1", cin, ncs[3 - level], True)
+        block(f"{p}.low2", ncs[3 - level], cin, False)
+    lp = path[0] + ".middle"
+    conv(f"{lp}.predict_FC1", 128, 27, 1)
+    sd[f"{lp}.predict_relu1.weight"] = torch.tensor([0.2])
+    conv(f"{lp}.predict_FC2", 9, 128, 1)
+    conv(f"{lp}.post_FC1", 128, 9, 1)
+    sd[f"{lp}.post_relu1.weight"] = torch.tensor([0.3])
+    conv(f"{lp}.post_FC2", 27, 128, 1)
+    for i in (1, 2, 3):
+        conv(f"conv_{i}", base, base, 3 if i == 1 else 1, bias=True)
+        bn(f"bn_{i}", base)
+    conv("output", 1, base, 1, bias=True)
+    return sd
+
+
+def event_ms(fn, n, warmup=2):
+    """Median of n single calls of fn timed with CUDA events, after warm-ups."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def wild_phase(failures, card, dev, render_flags, tmp):
+    """The wild-photo route, end to end on the card: the synthetic face family
+    generated at 512^2 (make_face_dataset, its frames rasterized on the card),
+    three wild photos made from its meshes (A: a frontal render placed by a
+    known similarity into a 640 x 480 JPEG, with its landmarks; B: the render
+    itself as a PNG, with its landmarks; C: a PNG without landmarks), the
+    wild_preprocess CLI through all four stages with seeded random BiSeNet
+    and Hourglass weights in the reference's layouts, the two networks timed
+    at 512^2, each stage's seconds a photo, then run_fit on A's relit photo
+    and pose from the training phase's checkpoint, the field kernel counted.
+    Returns ({"datagen": ...}, {"preprocess": ...})."""
+    import contextlib
+    import json as _json
+    import re
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.cli import run_fit, wild_preprocess
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.data.facescape import load_facescape_data
+    from mofanerf_tpu_torch.data.landmarks import project_landmarks
+    from mofanerf_tpu_torch.datagen.rasterize import rasterize_fragments, rasterize_mesh
+    from mofanerf_tpu_torch.datagen.synthetic_faces import (face_landmarks, face_mesh,
+                                                           make_face_dataset)
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.preprocess.align import CANONICAL_LANDMARKS_512, align_to_template
+    from mofanerf_tpu_torch.preprocess.matting import apply_mask
+    from mofanerf_tpu_torch.preprocess.pipeline import ROW_CUT, preprocess_dir
+    from mofanerf_tpu_torch.preprocess.pose import estimate_pose_from_kp
+    from mofanerf_tpu_torch.preprocess.relight import (HourglassNet, convert_hourglass_weights,
+                                                       load_hourglass, relight_to_canonical)
+    from mofanerf_tpu_torch.preprocess.segment import (BiSeNet, convert_bisenet_weights,
+                                                       face_mask_from_parsing, load_bisenet,
+                                                       segment_face, segment_logits)
+    from mofanerf_tpu_torch.utils.device import f32_products
+    from mofanerf_tpu_torch.utils.image_io import (imread, lab_to_rgb_u8, resize_linear,
+                                                   rgb_to_lab_u8, warp_affine, write_jpeg,
+                                                   write_png)
+
+    def quiet(call):
+        """call() with its standard output kept: (result, text, seconds)."""
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            result = call()
+        torch.cuda.synchronize()
+        return result, tee.text(), time.perf_counter() - t0
+
+    # ---- 1. the synthetic face family at 512^2
+    faces = os.path.join(tmp, "faces")
+    kw = dict(n_ids=WILD_IDS, exp_ids=WILD_EXPS, res=WILD_SIDE, view_stride=WILD_STRIDE,
+              n_holdout=WILD_HOLDOUT, seed=0, device=dev)
+    params, _, ds_sec = quiet(lambda: make_face_dataset(faces, **kw))
+    splits = {s: sum(len(_json.load(open(os.path.join(faces, f"transforms_{s}_{i}.json")))
+                         ["frames"]) for i in range(WILD_IDS)) for s in ("train", "val", "test")}
+    n_frames = sum(splits.values())
+    codes = np.load(os.path.join(faces, "factors_id.npy"))
+    ds = load_facescape_data(faces, list(range(WILD_IDS)), codes,
+                             uvdir=os.path.join(faces, "uv"), testskip=1)
+    uv = imread(os.path.join(faces, "uv", "0", "1_neutral.jpg"))
+    lms = np.load(os.path.join(faces, "landmarks.npy"))
+    frame0 = imread(ds.image_paths[0])
+    listing = sorted(os.listdir(faces))
+    _, again_text, again_sec = quiet(lambda: make_face_dataset(faces, **kw))
+    try:
+        make_face_dataset(faces, **dict(kw, seed=1))
+        guard = "no error"
+    except RuntimeError as e:
+        guard = str(e)
+    n_views = len(range(0, 120, WILD_STRIDE))
+    print(f"datagen: make_face_dataset {WILD_IDS} identities x {len(WILD_EXPS)} expressions x "
+          f"{n_views} views at {WILD_SIDE}^2 ({n_frames} frames: {splits}) in {ds_sec:.2f} s, "
+          f"{ds_sec / n_frames * 1e3:.1f} ms a frame with its PNG; load_facescape_data reads "
+          f"{len(ds.image_paths)}; a frame {frame0.shape}; UV map {uv.shape}; landmarks "
+          f"{lms.shape}; a second call {again_sec:.2f} s ({again_text.count('skip existing id')} "
+          f"identities skipped); a changed seed: {guard[:90]}", flush=True)
+    if len(ds.image_paths) != n_frames or n_frames != WILD_IDS * len(WILD_EXPS) * n_views \
+            or splits["val"] + splits["test"] != WILD_IDS * len(WILD_EXPS) * WILD_HOLDOUT:
+        fail(failures, f"the face family's splits {splits} or loader count "
+                       f"{len(ds.image_paths)} are off")
+    if uv.shape != (256, 256, 3) or lms.shape != (300, 20, 68, 3) \
+            or frame0.shape != (WILD_SIDE, WILD_SIDE, 4):
+        fail(failures, f"face family files: UV {uv.shape}, landmarks {lms.shape}, "
+                       f"frame {frame0.shape}")
+    if again_text.count("skip existing id") != WILD_IDS or "rendered id" in again_text \
+            or sorted(os.listdir(faces)) != listing:
+        fail(failures, "a second make_face_dataset call rendered again")
+    if "different config" not in guard:
+        fail(failures, f"a changed config did not raise the resume guard's error: {guard}")
+
+    # one 512^2 frame of the family's mesh: the rasterizer alone on the card (CUDA
+    # events, median of single calls after warm-ups), then rasterize_mesh on the host clock
+    verts, tris, albedo = face_mesh(params[0], 0)
+    K = np.array([[1200.0, 0, WILD_SIDE / 2], [0, 1200.0, WILD_SIDE / 2], [0, 0, 1]])
+    c2w = pose_spherical(0.0, 0.0, 16.0)
+    vc = (verts - c2w[:3, 3]) @ c2w[:3, :3]
+    args = (torch.from_numpy(vc.astype(np.float32)).to(dev),
+            torch.from_numpy(tris.astype(np.int64)).to(dev),
+            torch.from_numpy(np.asarray(albedo, np.float32)).to(dev),
+            1200.0, 1200.0, WILD_SIDE / 2, WILD_SIDE / 2, WILD_SIDE, WILD_SIDE, 24)
+    raster_ms = event_ms(lambda: rasterize_fragments(*args), 10)
+    t0 = time.perf_counter()
+    rgb, _, hit = rasterize_mesh(verts, tris, K, c2w, WILD_SIDE, WILD_SIDE, face_albedo=albedo,
+                                 device=dev)
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    fragments = len(tris) * 24 * 24
+    print(f"datagen: rasterize_fragments at {WILD_SIDE}^2, {len(tris)} faces, {fragments} "
+          f"fragments a frame: {raster_ms:.3f} ms (CUDA events, median of 10; "
+          f"{fragments / raster_ms * 1e3:.3e} fragments a second); rasterize_mesh with its host "
+          f"shading and copies {mesh_ms:.1f} ms; {int(hit.sum())} pixels hit on {card}",
+          flush=True)
+    # the card against the CPU (the same functions, plain PyTorch there) on small inputs
+    rng = np.random.default_rng(5)
+    v_s, t_s, a_s = face_mesh(params[0], 1, 16, 24)
+    small = dict(K=np.array([[150.0, 0, 32], [0, 150.0, 32], [0, 0, 1]]),
+                 c2w=pose_spherical(30.0, -10.0, 16.0), H=64, W=64, face_albedo=a_s)
+    r_card = rasterize_mesh(v_s, t_s, device=dev, **small)
+    r_cpu = rasterize_mesh(v_s, t_s, device="cpu", **small)
+    hit_off = int((r_card[2] != r_cpu[2]).sum())
+    rgb_err = float(np.abs(r_card[0] - r_cpu[0]).max())
+    img_s = rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    M_s = np.array([[0.9, -0.2, 6.0], [0.2, 0.9, -4.0]])
+    warp_err = float((warp_affine(torch.from_numpy(img_s).to(dev), M_s, (72, 56)).cpu()
+                      - warp_affine(torch.from_numpy(img_s), M_s, (72, 56))).abs().max())
+    colours = torch.from_numpy(rng.integers(0, 256, (100_000, 3), dtype=np.uint8))
+    lab_off = int((rgb_to_lab_u8(colours.to(dev)).cpu() != rgb_to_lab_u8(colours)).sum()
+                  + (lab_to_rgb_u8(colours.to(dev)).cpu() != lab_to_rgb_u8(colours)).sum())
+    print(f"datagen: the card against the CPU: rasterize_mesh at 64^2 hit pixels differing "
+          f"{hit_off}, max |rgb diff| {rgb_err:.2e}; warp_affine max |diff| {warp_err:.2e}; "
+          f"8-bit Lab bytes differing (both ways, 10^5 colours) {lab_off}", flush=True)
+    if hit_off or rgb_err > 1e-6 or warp_err > 1e-6 or lab_off:
+        fail(failures, f"card against CPU: rasterizer hit {hit_off} / rgb {rgb_err}, warp "
+                       f"{warp_err}, Lab {lab_off}")
+
+    out_dg = {"dataset_s": ds_sec, "frames": n_frames, "splits": splits,
+              "ms_a_frame": ds_sec / n_frames * 1e3, "second_call_s": again_sec,
+              "rasterize_ms": raster_ms, "rasterize_mesh_ms": mesh_ms, "faces": len(tris),
+              "fragments": fragments, "card_vs_cpu": {"hit_pixels_differing": hit_off,
+                                                      "rgb_err": rgb_err, "warp_err": warp_err,
+                                                      "lab_bytes_differing": lab_off},
+              "card": card}
+
+    # ---- 2. three wild photos
+    photos = os.path.join(tmp, "wild")
+    os.makedirs(photos)
+    kp_b = project_landmarks(face_landmarks(params[0], 0).astype(np.float64), K, c2w)  # (row, col)
+    deg, scale = WILD_WARP
+    th = np.deg2rad(deg)
+    S = np.array([[scale * np.cos(th), -scale * np.sin(th), 0.0],
+                  [scale * np.sin(th), scale * np.cos(th), 0.0]])
+    S[:, 2] = np.array([WILD_CANVAS[0] / 2 + 40, WILD_CANVAS[1] / 2 - 10]) \
+        - S[:, :2] @ np.array([WILD_SIDE / 2, WILD_SIDE / 2])
+    canvas = warp_affine(torch.from_numpy(rgb).to(dev), S, WILD_CANVAS)
+    to8 = lambda x: (np.clip(x, 0, 1) * 255).astype(np.uint8)
+    write_jpeg(os.path.join(photos, "A.jpg"), to8(canvas.cpu().numpy()))
+    kp_a = (np.concatenate([kp_b[:, ::-1], np.ones((68, 1))], 1) @ S.T)[:, ::-1]
+    np.save(os.path.join(photos, "kp_A.npy"), kp_a)
+    write_png(os.path.join(photos, "B.png"), to8(rgb))
+    np.save(os.path.join(photos, "kp_B.npy"), kp_b)
+    v1, t1, a1 = face_mesh(params[1], 1)
+    K_c = np.array([[1200.0, 0, 300], [0, 1200.0, 200], [0, 0, 1]])
+    rgb_c, _, _ = rasterize_mesh(v1, t1, K_c, pose_spherical(20.0, 0.0, 16.0), 400, 600,
+                                 face_albedo=a1, device=dev)
+    write_png(os.path.join(photos, "C.png"), to8(rgb_c))
+
+    # ---- 3. weights in the reference's layouts, seeded
+    weights = os.path.join(tmp, "wild_weights")
+    os.makedirs(weights)
+    bisenet_sd = reference_bisenet_sd(torch.Generator().manual_seed(11))
+    hourglass_sd = reference_hourglass_sd(torch.Generator().manual_seed(3))
+    torch.save(bisenet_sd, os.path.join(weights, "Seg_79999_iter.pth"))
+    torch.save(hourglass_sd, os.path.join(weights, "trained_model_03.t7"))
+    sh = np.random.default_rng(9).normal(size=9)
+    np.save(os.path.join(weights, "fcspLight.npy"), sh.reshape(9, 1))
+
+    # ---- 4. the CLI, all four stages, on the card
+    flags = ["--filePath", photos, "--landmarks3d", os.path.join(faces, "landmarks.npy"),
+             "--bisenet_weights", os.path.join(weights, "Seg_79999_iter.pth"),
+             "--relight_weights", os.path.join(weights, "trained_model_03.t7"),
+             "--canonical_sh", os.path.join(weights, "fcspLight.npy"), "--device", str(dev)]
+    _, cli_text, cli_sec = quiet(lambda: wild_preprocess.main(flags))
+    outs = {sub: sorted(os.listdir(os.path.join(photos, sub)))
+            for sub in ("raw", "mask", "segRes", "segRelRes")}
+    shapes = {imread(os.path.join(photos, sub, f"{n}.png")).shape[:2]
+              for sub in outs for n in "ABC" if os.path.exists(os.path.join(photos, sub, f"{n}.png"))}
+    pose_err, kp_shapes = 0.0, set()
+    for n in "ABC":
+        d = np.load(os.path.join(photos, f"pose_{n}.npy"), allow_pickle=True).item()
+        R = d["pose"][:3, :3].astype(np.float64)
+        pose_err = max(pose_err, float(np.abs(R.T @ R - np.eye(3)).max()))
+        kp_shapes.add(d["kp"].shape)
+    raw_a = imread(os.path.join(photos, "raw", "A.png")).astype(np.float32) / 255
+    raw_b = imread(os.path.join(photos, "raw", "B.png")).astype(np.float32) / 255
+    mask_b = imread(os.path.join(photos, "mask", "B.png")) > 0
+    face_b = imread(os.path.join(photos, "raw", "B.png")).max(-1) > 0   # the render's head
+    inside = mask_b & face_b
+    ab_diff = float(np.abs(raw_a - raw_b)[inside].mean()) if inside.any() else float("nan")
+    # the CLI's mask of A against a direct segment_face call on the same aligned image
+    net = load_bisenet(convert_bisenet_weights(bisenet_sd, dev))
+    hg = load_hourglass(convert_hourglass_weights(hourglass_sd, dev))
+    net_cpu = load_bisenet(convert_bisenet_weights(bisenet_sd, "cpu"))
+    hg_cpu = load_hourglass(convert_hourglass_weights(hourglass_sd, "cpu"))
+    kps = {"A": kp_a, "B": kp_b, "C": None}
+
+    def aligned_of(name, device):
+        """The photo's aligned 512^2 image as preprocess_dir makes it."""
+        fname = {"A": "A.jpg", "B": "B.png", "C": "C.png"}[name]
+        img = imread(os.path.join(photos, fname)).astype(np.float32)[..., :3] / 255.0
+        if kps[name] is None:
+            s = min(img.shape[:2])
+            y0, x0 = (img.shape[0] - s) // 2, (img.shape[1] - s) // 2
+            return torch.from_numpy(resize_linear(img[y0:y0 + s, x0:x0 + s], (512, 512))
+                                    ).to(device), CANONICAL_LANDMARKS_512.copy()
+        return align_to_template(torch.from_numpy(img).to(device), kps[name][:, ::-1].copy())
+
+    aligned, _ = aligned_of("A", dev)
+    direct = face_mask_from_parsing(segment_face(aligned, net)) * np.uint8(255)
+    mask_equal = bool(np.array_equal(direct, imread(os.path.join(photos, "mask", "A.png"))))
+    fallback = "[C] no landmarks available; center-crop fallback" in cli_text
+    print(f"preprocess: wild_preprocess, all four stages, 3 photos: {cli_sec:.2f} s with start-up "
+          f"(weights converted on the card); outputs {outs}; sides {shapes}; pose |R^T R - I| "
+          f"max {pose_err:.2e}, kp {kp_shapes}; A (warped {deg} deg x {scale} into "
+          f"{WILD_CANVAS}, JPEG) against B aligned: mean |diff| {ab_diff:.4f} over "
+          f"{int(inside.sum())} pixels of B's mask; A's mask equals a direct segment_face "
+          f"{mask_equal}; C's center-crop fallback logged {fallback}", flush=True)
+    if any(v != ["A.png", "B.png", "C.png"] for v in outs.values()) or shapes != {(512, 512)}:
+        fail(failures, f"wild_preprocess outputs {outs}, sides {shapes}")
+    if not pose_err < 1e-5 or kp_shapes != {(68, 2)}:
+        fail(failures, f"pose files: |R^T R - I| {pose_err}, kp {kp_shapes}")
+    if not ab_diff <= WILD_AB_TOL:
+        fail(failures, f"A's aligned photo differs from B's by {ab_diff} (tol {WILD_AB_TOL})")
+    if not mask_equal or not fallback:
+        fail(failures, f"A's mask equals a direct call {mask_equal}; fallback logged {fallback}")
+
+    # the CLI's files on the card against preprocess_dir on the CPU (plain PyTorch there)
+    # from the same photos and weights, held as tests/test_torch_wild_preprocess.py holds
+    # the port against JAX: poses within 1e-6; raw and segRes within 1 level; the masks
+    # equal wherever the CPU's top-2 BiSeNet logits are more than 1e-4 of the logits'
+    # scale apart; the relit images, where the masks agree, within 4 levels, mean < 0.1
+    on_cpu = os.path.join(tmp, "wild_cpu")
+    shutil.copytree(photos, on_cpu, ignore=shutil.ignore_patterns(
+        "raw", "mask", "segRes", "segRelRes", "pose_*", "fitting"))
+    _, _, cpu_sec = quiet(lambda: preprocess_dir(
+        on_cpu, landmarks_3d=lms[1, 0] / 50.0, bisenet_variables=net_cpu.state_dict(),
+        relight_variables=hg_cpu.state_dict(), canonical_sh=sh, device="cpu"))
+    read = lambda d, sub, n: imread(os.path.join(d, sub, f"{n}.png")).astype(np.int64)
+    vs_cpu = {"pose_err": 0.0, "raw_levels": 0, "mask_off_decided": 0, "mask_off": 0,
+              "seg_levels": 0, "relit_levels": 0, "relit_mean_levels": 0.0}
+    for n in "ABC":
+        d_card, d_cpu = (np.load(os.path.join(d, f"pose_{n}.npy"), allow_pickle=True).item()
+                         for d in (photos, on_cpu))
+        vs_cpu["pose_err"] = max(vs_cpu["pose_err"], *(
+            float(np.abs(d_card[k].astype(np.float64) - d_cpu[k]).max()) for k in ("pose", "kp")))
+        logits = segment_logits(aligned_of(n, "cpu")[0], net_cpu).sort(0).values
+        near_tie = ((logits[-1] - logits[-2]) <= 1e-4 * logits.abs().max()).numpy()
+        differ = read(photos, "mask", n) != read(on_cpu, "mask", n)
+        same = ~differ
+        vs_cpu["mask_off"] += int(differ.sum())
+        vs_cpu["mask_off_decided"] += int((differ & ~near_tie).sum())
+        vs_cpu["raw_levels"] = max(vs_cpu["raw_levels"], int(np.abs(
+            read(photos, "raw", n) - read(on_cpu, "raw", n)).max()))
+        vs_cpu["seg_levels"] = max(vs_cpu["seg_levels"], int(np.abs(
+            read(photos, "segRes", n) - read(on_cpu, "segRes", n))[same].max()))
+        rel = np.abs(read(photos, "segRelRes", n) - read(on_cpu, "segRelRes", n))[same]
+        vs_cpu["relit_levels"] = max(vs_cpu["relit_levels"], int(rel.max()))
+        vs_cpu["relit_mean_levels"] = max(vs_cpu["relit_mean_levels"], float(rel.mean()))
+    print(f"preprocess: the CLI's files on the card against preprocess_dir on the CPU "
+          f"({cpu_sec:.2f} s there), 3 photos: {vs_cpu}", flush=True)
+    if vs_cpu["pose_err"] > 1e-6 or vs_cpu["raw_levels"] > 1 or vs_cpu["mask_off_decided"] \
+            or vs_cpu["seg_levels"] > 1 or vs_cpu["relit_levels"] > 4 \
+            or not vs_cpu["relit_mean_levels"] < 0.1:
+        fail(failures, f"the CLI on the card differs from preprocess_dir on the CPU: {vs_cpu}")
+
+    # ---- 5. the networks as the pipeline calls them (segment_logits and
+    # relight_to_canonical set f32 with TF32 off themselves; the checks here add nothing),
+    # the card against the CPU at 64^2, then at 512^2 timed, then each stage's seconds a photo
+    img64 = np.random.default_rng(2).uniform(0, 1, (64, 64, 3)).astype(np.float32)
+    seg_pair = (segment_logits(torch.from_numpy(img64).to(dev), net).cpu(),
+                segment_logits(torch.from_numpy(img64), net_cpu))
+    rel_card, light_card = relight_to_canonical(img64, hg, sh, size=64)
+    rel_cpu, light_cpu = relight_to_canonical(img64, hg_cpu, sh, size=64)
+    nets_err = [float((a - b).abs().max() / b.abs().max()) for a, b in
+                (seg_pair, (torch.from_numpy(light_card), torch.from_numpy(light_cpu)))]
+    rel64 = float((rel_card.cpu() - rel_cpu).abs().max() * 255)
+    print(f"preprocess: the card against the CPU at 64^2: segment_logits {nets_err[0]:.2e}, "
+          f"relight_to_canonical's source SH {nets_err[1]:.2e} of the largest magnitude, its "
+          f"relit image {rel64:.1f} levels", flush=True)
+    if max(nets_err) > 1e-4 or rel64 > 4:
+        fail(failures, f"the preprocessing networks on the card differ from the CPU: "
+                       f"{nets_err}, relit {rel64} levels")
+    seg_a = apply_mask(aligned, torch.from_numpy(direct // 255).to(dev))
+    seg_a[ROW_CUT:, :] = 0
+    seg_ms = event_ms(lambda: segment_logits(aligned, net), 10)
+    relight_ms = event_ms(lambda: relight_to_canonical(seg_a, hg, sh), 10)
+    x_l = rgb_to_lab_u8((seg_a * 255).to(torch.uint8))[..., 0].float()[None, None] / 255.0
+    tl = torch.from_numpy(sh.astype(np.float32).reshape(1, 9, 1, 1)).to(dev)
+    with torch.no_grad(), f32_products():   # the Hourglass alone, as relight_to_canonical calls it
+        hg_ms = event_ms(lambda: hg(x_l, tl), 10)
+    with torch.device("meta"):
+        seg_flops = conv_flops(BiSeNet(), (1, 3, 512, 512))
+        hg_flops = conv_flops(HourglassNet(), (1, 1, 512, 512), (1, 9, 1, 1))
+    seg_bound, hg_bound = seg_flops / PEAK_F32 * 1e3, hg_flops / PEAK_F32 * 1e3
+    stage_s: dict = {}
+
+    def lap(stage, t0):
+        torch.cuda.synchronize()
+        stage_s.setdefault(stage, []).append(round(time.perf_counter() - t0, 4))
+        return time.perf_counter()
+
+    for n in "ABC":   # preprocess_dir's stage calls, its PNG writes left out
+        t0 = time.perf_counter()
+        al, kp_al = aligned_of(n, dev)
+        estimate_pose_from_kp(kp_al, lms[1, 0] / 50.0, 1200.0)
+        t0 = lap("align", t0)
+        m = face_mask_from_parsing(segment_face(al, net))
+        t0 = lap("mask", t0)
+        seg = apply_mask(al, torch.from_numpy(m).to(dev))
+        seg[ROW_CUT:, :] = 0
+        t0 = lap("segment", t0)
+        relight_to_canonical(seg, hg, sh)
+        lap("relight", t0)
+    print(f"preprocess: segment_logits at 512^2 {seg_ms:.3f} ms (BiSeNet, bound {seg_bound:.3f} "
+          f"ms: {seg_flops / 1e9:.1f} GFLOP at f32 peak); the Hourglass {hg_ms:.3f} ms (bound "
+          f"{hg_bound:.3f} ms: {hg_flops / 1e9:.2f} GFLOP), relight_to_canonical with its 8-bit "
+          f"Lab both ways {relight_ms:.3f} ms; each stage's seconds a photo (A, B, C; "
+          f"synchronised, warm) {stage_s} on {card}", flush=True)
+
+    # ---- 6. run_fit on A's relit photo and pose, from the training checkpoint
+    cfg = load_config(render_flags)
+    photo = os.path.join(photos, "segRelRes", "A.png")
+    argv = ["--filePath", photo, "--num_iterations", str(WILD_FIT_ITERS),
+            "--pose_freeze_iters", str(WILD_FIT_ITERS // 2), "--device", str(dev)] + render_flags
+    preview_packets = n_packets((512 // 2) ** 2, cfg.model_spec().render.packet_size)
+    want = 2 * preview_packets   # the final preview, both fields a packet
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    _, fit_text, fit_sec = quiet(lambda: run_fit.main(argv))
+    launches = fk.launch_count
+    losses = [float(v) for v in re.findall(r"\[FIT\] iter \d+ loss (\S+)", fit_text)]
+    fit_dir = os.path.join(photos, "fitting", "segRelRes_A")
+    files = sorted(os.listdir(fit_dir)) if os.path.isdir(fit_dir) else []
+    print(f"preprocess: run_fit fitting on segRelRes/A.png with pose_A.npy, "
+          f"{WILD_FIT_ITERS + 1} steps in {fit_sec:.2f} s with start-up; loss {losses}; field "
+          f"kernel launches {launches} (expected {want}); files {files}", flush=True)
+    if launches != want:
+        fail(failures, f"wild fit: field kernel launches {launches}, expected {want}")
+    if not losses or not np.isfinite(losses).all():
+        fail(failures, f"wild fit loss not finite: {losses}")
+    if files != sorted(["target.png", "fit_params.npz", "fit_params.npz.opt.pt", "fit_final.png"]):
+        fail(failures, f"wild fit wrote {files}")
+    out_pp = {"cli_s": cli_sec, "photos": 3, "stage_s": stage_s, "bisenet_ms": seg_ms,
+              "bisenet_bound_ms": seg_bound, "bisenet_gflop": seg_flops / 1e9,
+              "hourglass_ms": hg_ms, "hourglass_bound_ms": hg_bound, "relight_ms": relight_ms,
+              "hourglass_gflop": hg_flops / 1e9, "ab_mean_abs_diff": ab_diff,
+              "nets_card_vs_cpu": nets_err, "relit_card_vs_cpu_levels": rel64,
+              "cli_card_vs_cpu": vs_cpu, "cpu_preprocess_s": cpu_sec,
+              "pose_ortho_err": pose_err, "fit_s": fit_sec, "fit_losses": losses,
+              "launches": launches, "card": card}
+    return out_dg, out_pp
+
+
 def train_step_timing(failures, card, dev, final, cfg, batches):
     """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
     samples, the fine pass on 128, N_rand 1024, UV 512, bf16) from the trained state:
@@ -2235,10 +2719,16 @@ def main(argv) -> int:
         dd = device_data_phase(failures, card, dev, render_flags, work)
         print(f"path phase (device-resident training data): {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
+        datagen, wild = wild_phase(failures, card, dev, render_flags, work)
+        print(f"path phase (data generation, wild-photo preprocessing, run_fit): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
     print(json.dumps({"refine": dict(refined, card=card)}), flush=True)
     print(json.dumps({"train_device_data": dict(dd, card=card)}), flush=True)
+    print(json.dumps({"datagen": datagen}), flush=True)
+    print(json.dumps({"preprocess": wild}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -2253,7 +2743,8 @@ def main(argv) -> int:
                       "evaluate": sum(fit_launched[k] for k in
                                       ("evaluate", "evaluate --render_factor 2")) // 2,
                       "refine_corpus": refined["launches"]["refine_corpus"] // 2,
-                      "train_device_data": dd["launches"] // 2}
+                      "train_device_data": dd["launches"] // 2,
+                      "wild_fit": wild["launches"] // 2}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
                        ("--distill", "--distill_cond", "--distill_avatars")),

@@ -9,7 +9,10 @@ path reads: the ISM and the [21, 30] `exp_codes` bank; the whole teacher
 (`model_params_to_torch`) and a training state with its Adam moments
 (`train_state_to_torch`); RefineNet's flax variables (`refine_params_to_torch`:
 HWIO kernels to OIHW, transposed-conv kernels flipped), its VGG
-(`vgg_to_torch`) and its training state (`refine_state_to_torch`).
+(`vgg_to_torch`) and its training state (`refine_state_to_torch`); the
+preprocessing networks' folded variables (`bisenet_params_to_torch`,
+`hourglass_params_to_torch`: HWIO kernels to OIHW, the folded BatchNorm
+pairs as they are).
 
 Trees are also flattened by JAX key path (`['layers'][0]['w']`), in JAX's
 leaf order (dict keys sorted), which is how student artifacts name their
@@ -269,3 +272,38 @@ def refine_state_to_torch(state, cfg, device="cuda"):
     return RefineState(refine_params_to_torch(state.g_params, g, dev),
                        refine_params_to_torch(state.d_params, d, dev),
                        opt(state.g_opt, g), opt(state.d_opt, d), as_int(state.step))
+
+
+def _flax_to_state(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested flax params -> flat torch names: a path joined by dots, a conv
+    `kernel` (HWIO) becoming `weight` (OIHW), every other leaf kept."""
+    out: Dict[str, np.ndarray] = {}
+    for key, leaf in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(leaf, dict):
+            out.update(_flax_to_state(leaf, name + "."))
+        elif key == "kernel":
+            out[f"{prefix}weight"] = np.ascontiguousarray(np.asarray(leaf).transpose(3, 2, 0, 1))
+        else:
+            out[name] = np.asarray(leaf)
+    return out
+
+
+def bisenet_params_to_torch(variables, device="cuda") -> Params:
+    """The JAX BiSeNet's flax variables (numpy leaves; BatchNorms folded into
+    `bn_scale` / `bn_shift`, kept as they are) -> the port's BiSeNet
+    parameters (preprocess/segment.py), checked against its layout."""
+    from mofanerf_tpu_torch.preprocess.segment import BiSeNet, state_to_device
+
+    return state_to_device(_flax_to_state(variables["params"]), BiSeNet, resolve_device(device))
+
+
+def hourglass_params_to_torch(variables, device="cuda") -> Params:
+    """The JAX HourglassNet's flax variables (numpy leaves) -> the port's
+    HourglassNet parameters (preprocess/relight.py), checked against its
+    layout."""
+    from mofanerf_tpu_torch.preprocess.relight import HourglassNet
+    from mofanerf_tpu_torch.preprocess.segment import state_to_device
+
+    return state_to_device(_flax_to_state(variables["params"]), HourglassNet,
+                           resolve_device(device))

@@ -17,14 +17,22 @@ of mofanerf_tpu/data/facescape.py.
   coefficients when enlarging.
 - `resize_linear`: `cv2.resize(img, (w, h))` at its default INTER_LINEAR for
   float images: two taps an axis, no antialiasing.
+- BMP: uncompressed 24- and 32-bit and 8-bit paletted files, bottom-up or
+  top-down, read as Pillow reads them.
+- On tensors, on whichever device they lie: `warp_affine`
+  (`cv2.warpAffine(img, M, size, flags=INTER_LINEAR)` on float32 images, with
+  a constant border of 0, in cv2's float32 arithmetic) and `rgb_to_lab_u8` / `lab_to_rgb_u8` (cv2's 8-bit
+  `COLOR_RGB2LAB` / `COLOR_LAB2RGB`, byte for byte).
 """
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 from array import array
 
 import numpy as np
+import torch
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -38,12 +46,14 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] uint8 image as an RGB PNG (standard library only)."""
-    h, w, _ = img.shape
+    """Write a uint8 image as a PNG (standard library only): [H, W] gray,
+    [H, W, 3] RGB or [H, W, 4] RGBA."""
+    h, w = img.shape[:2]
+    color = {1: 0, 3: 2, 4: 6}[1 if img.ndim == 2 else img.shape[2]]
     raw = b"".join(b"\x00" + np.ascontiguousarray(img[i]).tobytes() for i in range(h))
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE)
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
         f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_png_chunk(b"IEND", b""))
 
@@ -638,16 +648,51 @@ def write_jpeg(path: str, img: np.ndarray, quality: int = 75) -> None:
         f.write(encode_jpeg(img, quality))
 
 
+def read_bmp(data: bytes) -> np.ndarray:
+    """Uncompressed BMP bytes -> uint8 as Pillow reads them: 24- and 32-bit
+    files as [H, W, 3] (a 32-bit file's fourth byte is padding), 8-bit files
+    as [H, W] when the palette is the gray ramp, else [H, W, 3] through the
+    palette; rows bottom-up (height > 0) or top-down (height < 0)."""
+    if data[:2] != b"BM":
+        raise ValueError("not a BMP file")
+    (offset,) = struct.unpack("<I", data[10:14])
+    (header,) = struct.unpack("<I", data[14:18])
+    if header < 40:
+        raise ValueError(f"BMP header of {header} bytes: only BITMAPINFOHEADER and later")
+    w, h, _, bpp, compression = struct.unpack("<iiHHI", data[18:34])
+    (colors,) = struct.unpack("<I", data[46:50])
+    if compression != 0 or bpp not in (8, 24, 32):
+        raise ValueError(f"BMP of {bpp} bits, compression {compression}: only uncompressed "
+                         "8-, 24- and 32-bit files are read")
+    rows, stride = abs(h), (w * bpp // 8 + 3) // 4 * 4
+    pix = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if h > 0:
+        pix = pix[::-1]
+    if bpp == 8:
+        n = colors or 256
+        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + header).reshape(n, 4)[:, 2::-1]
+        idx = pix[:, :w]
+        if (pal == np.arange(n, dtype=np.uint8)[:, None]).all():
+            return np.ascontiguousarray(idx)
+        return np.ascontiguousarray(pal[idx])
+    k = bpp // 8
+    return np.ascontiguousarray(pix[:, :w * k].reshape(rows, w, k)[:, :, 2::-1])
+
+
 def imread(path: str) -> np.ndarray:
-    """Read a PNG or a baseline JPEG file, told apart by its first bytes, as
-    uint8 [H, W] or [H, W, C]."""
+    """Read a PNG, a baseline JPEG or an uncompressed BMP file, told apart by
+    its first bytes, as uint8 [H, W] or [H, W, C]. A file that cannot be
+    read raises naming it."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == PNG_SIGNATURE:
-        return read_png(data)
-    if data[:2] == b"\xff\xd8":
-        return read_jpeg(data)
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    readers = {PNG_SIGNATURE: read_png, b"\xff\xd8": read_jpeg, b"BM": read_bmp}
+    for magic, read in readers.items():
+        if data.startswith(magic):
+            try:
+                return read(data)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from e
+    raise ValueError(f"{path}: neither a PNG, a JPEG nor a BMP file")
 
 
 def image_size(path: str) -> tuple:
@@ -869,3 +914,168 @@ def resize_cubic(img: np.ndarray, size) -> np.ndarray:
     if (out_h, out_w) == (h, w):
         return img.copy()
     return _separable(img, _cubic_weights(h, out_h), _cubic_weights(w, out_w))
+
+
+# ---------------------------------------------------------------------------
+# cv2.warpAffine(img, M, size, flags=INTER_LINEAR), on tensors
+
+
+def _invert_affine(M: np.ndarray) -> np.ndarray:
+    """`cv2.invertAffineTransform`: the [2, 3] inverse of a [2, 3] affine map,
+    in float64 (0 where the map is singular)."""
+    M = np.asarray(M, np.float64)
+    det = M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0]
+    d = 1.0 / det if det != 0 else 0.0
+    a11, a22, a12, a21 = M[1, 1] * d, M[0, 0] * d, -M[0, 1] * d, -M[1, 0] * d
+    return np.array([[a11, a12, -a11 * M[0, 2] - a12 * M[1, 2]],
+                     [a21, a22, -a21 * M[0, 2] - a22 * M[1, 2]]])
+
+
+_WARP_VECTOR = 16   # output pixels a step of cv2's vectorised row loop (8 float32 lanes x 2)
+
+
+def warp_affine(img: torch.Tensor, M: np.ndarray, size) -> torch.Tensor:
+    """`cv2.warpAffine(img, M, size, flags=cv2.INTER_LINEAR)` for a float32
+    [H, W] or [H, W, C] tensor, on its device. Output pixel (x, y) samples the
+    input bilinearly at M^-1 (x, y, 1), in float32 as cv2's vectorised loop
+    computes it: M^-1 rounded to float32, a row's base y * m1 + m2 rounded,
+    then fma(m0, x, base); the row's last (width mod 16) pixels take cv2's
+    scalar tail, fma(x, m0, y * m1) + m2. (A fused multiply-add is one
+    rounding of an exact float64 product and sum.) The weights are the
+    coordinates' fractional parts, blended as a + f (b - a) in float32. The
+    border is the constant 0: a tap outside the input reads 0, so a pixel
+    whose taps fall partly outside blends with 0. `size` is (width, height)
+    as cv2 takes it."""
+    out_w, out_h = int(size[0]), int(size[1])
+    m = torch.from_numpy(_invert_affine(M).astype(np.float32)).to(img.device)
+    h, w = img.shape[:2]
+    dev = img.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float64, device=dev)[None, :]
+    body = xs < out_w // _WARP_VECTOR * _WARP_VECTOR
+
+    def coord(r):
+        m0, m1, m2 = m[r, 0].double(), m[r, 1], m[r, 2]
+        vec = (m0 * xs + (ys * m1 + m2).double()).float()
+        tail = (m0 * xs + (ys * m1).double()).float() + m2
+        return torch.where(body, vec, tail)
+
+    sx, sy = coord(0), coord(1)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    x0, y0 = x0.long(), y0.long()
+    flat = img.reshape(h * w, -1)
+
+    def tap(dx, dy):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        return flat[torch.where(inside, yi * w + xi, 0)] * inside[..., None]
+
+    fx, fy = fx[..., None], fy[..., None]
+    p00, p01, p10, p11 = tap(0, 0), tap(1, 0), tap(0, 1), tap(1, 1)
+    top = p00 + fx * (p01 - p00)
+    bot = p10 + fx * (p11 - p10)
+    return (top + fy * (bot - top)).reshape((out_h, out_w) + tuple(img.shape[2:]))
+
+
+# ---------------------------------------------------------------------------
+# cv2.cvtColor(uint8, COLOR_RGB2LAB / COLOR_LAB2RGB), on tensors
+#
+# cv2's 8-bit conversions are integer arithmetic on tables it builds in
+# software floating point: RGB -> Lab through an sRGB gamma table scaled by
+# 2^3, a fixed-point (2^12) RGB -> XYZ matrix over the D65 white, a cube-root
+# table scaled by 2^15 and rounding descales; Lab -> RGB through an L -> (Y,
+# f(Y)) table, fixed-point divisions of a and b, an f^-1 table, a fixed-point
+# XYZ -> RGB matrix and an inverse-gamma table of 4096 entries. The tables
+# below are cv2's: float32 arithmetic rounded as cv2 rounds (half to even),
+# checked byte for byte against cv2 on all 2^24 inputs of each direction.
+
+_LAB_SHIFT, _GAMMA_SHIFT = 12, 3
+_LAB_SHIFT2 = _LAB_SHIFT + _GAMMA_SHIFT
+_LAB_BASE = 1 << 14
+_INV_GAMMA_SIZE = 1 << 12
+_AB_MIN = -8145      # the least index of the f^-1 table that a and b reach
+_SRGB_TO_XYZ = np.array([[0.412453, 0.357580, 0.180423], [0.212671, 0.715160, 0.072169],
+                         [0.019334, 0.119193, 0.950227]])
+_XYZ_TO_SRGB = np.array([[3.240479, -1.53715, -0.498535], [-0.969256, 1.875991, 0.041556],
+                         [0.055648, -0.204043, 1.057311]])
+_D65 = np.array([0.950456, 1.0, 1.088754])
+
+
+def _round_even(x) -> np.ndarray:
+    return np.rint(np.asarray(x, np.float64)).astype(np.int64)
+
+
+@functools.cache
+def _lab_tables_np() -> dict:
+    f32 = np.float32
+    gamma = lambda x: np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+    inv_gamma = lambda x: np.where(x <= 0.0031308, 12.92 * x, 1.055 * x ** (1 / 2.4) - 0.055)
+    x = np.arange(256).astype(f32) / f32(255)
+    gamma_b = _round_even(f32(255 << _GAMMA_SHIFT) * gamma(x.astype(np.float64)).astype(f32))
+    lthresh, lscale, lbias = f32(216) / f32(24389), f32(841) / f32(108), f32(16) / f32(116)
+    x = np.arange(256 * 3 // 2 << _GAMMA_SHIFT).astype(f32) / f32(255 << _GAMMA_SHIFT)
+    f = np.where(x < lthresh, x * lscale + lbias, np.cbrt(x.astype(np.float64)).astype(f32))
+    cbrt_b = _round_even(f32(1 << _LAB_SHIFT2) * f.astype(f32))
+    cbrt_b[324] -= 1   # cv2's software cube root is one float32 step low here
+    to_xyz = _round_even((1 << _LAB_SHIFT) * _SRGB_TO_XYZ / _D65[:, None])
+    # Lab -> RGB
+    y_b, fy_b = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    for i in range(256):
+        if i <= 20:
+            y_b[i] = _round_even(f32(i * _LAB_BASE * 20 * 9) / f32(17 * 29 ** 3))
+            fy_b[i] = _round_even(f32(_LAB_BASE) * (f32(16) / f32(116)
+                                                    + f32(i * 5) / f32(3 * 17 * 29)))
+        else:
+            fy = f32(i * 100 * _LAB_BASE) / f32(255 * 116) + f32(16 * _LAB_BASE) / f32(116)
+            fy_b[i] = _round_even(fy)
+            y_b[i] = _round_even(fy * fy * fy / f32(_LAB_BASE * _LAB_BASE))
+    v = np.arange(_AB_MIN, 2 * _LAB_BASE, dtype=np.int64)
+    trunc_div = lambda a, b: np.sign(a) * (np.abs(a) // b)   # C's division, b > 0
+    xz_b = np.where(v <= 3390,
+                    trunc_div(v * 108, 841) - _LAB_BASE * 16 // 116 * 108 // 841,
+                    trunc_div(trunc_div(v * v, _LAB_BASE) * v, _LAB_BASE))
+    x = f32(1) / f32(_INV_GAMMA_SIZE) * np.arange(_INV_GAMMA_SIZE).astype(f32)
+    inv_gamma_b = _round_even(f32(255) * inv_gamma(x.astype(np.float64)).astype(f32))
+    to_rgb = _round_even((1 << _LAB_SHIFT) * _XYZ_TO_SRGB * _D65[None, :])
+    return {"gamma": gamma_b, "cbrt": cbrt_b, "to_xyz": to_xyz, "y": y_b, "fy": fy_b,
+            "xz": xz_b, "inv_gamma": inv_gamma_b, "to_rgb": to_rgb}
+
+
+@functools.cache
+def _lab_tables(dev: torch.device) -> dict:
+    return {k: torch.from_numpy(v).to(dev) for k, v in _lab_tables_np().items()}
+
+
+def _descale(v: torch.Tensor, n: int) -> torch.Tensor:
+    return (v + (1 << (n - 1))) >> n
+
+
+def rgb_to_lab_u8(rgb: torch.Tensor) -> torch.Tensor:
+    """`cv2.cvtColor(rgb, cv2.COLOR_RGB2LAB)` for a uint8 [..., 3] tensor, on
+    its device, byte for byte: L scaled to 0..255, a and b offset by 128."""
+    t = _lab_tables(rgb.device)
+    lin = t["gamma"][rgb.long()]                              # [..., 3], scaled by 2^3
+    # integer products written out: CUDA has no integer matmul
+    xyz = _descale((lin[..., None, :] * t["to_xyz"]).sum(-1), _LAB_SHIFT)
+    fx, fy, fz = t["cbrt"][xyz].unbind(-1)
+    one = 1 << _LAB_SHIFT2
+    L = _descale(((116 * 255 + 50) // 100) * fy - (16 * 255 * one + 50) // 100, _LAB_SHIFT2)
+    a = _descale(500 * (fx - fy) + 128 * one, _LAB_SHIFT2)
+    b = _descale(200 * (fy - fz) + 128 * one, _LAB_SHIFT2)
+    return torch.stack([L, a, b], -1).clamp(0, 255).to(torch.uint8)
+
+
+def lab_to_rgb_u8(lab: torch.Tensor) -> torch.Tensor:
+    """`cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)` for a uint8 [..., 3] tensor, on
+    its device, byte for byte (lossy: out-of-gamut colours clip)."""
+    t = _lab_tables(lab.device)
+    L, a, b = lab.long().unbind(-1)
+    y, fy = t["y"][L], t["fy"][L]
+    adiv = ((5 * a * 53687 + (1 << 7)) >> 13) - 128 * _LAB_BASE // 500
+    bdiv = ((b * 41943 + (1 << 4)) >> 9) - 128 * _LAB_BASE // 200 + 1
+    x, z = t["xz"][fy + adiv - _AB_MIN], t["xz"][fy - bdiv - _AB_MIN]
+    xyz = torch.stack([x, y, z], -1)
+    shift = _LAB_SHIFT + 14 - 12
+    rgb = _descale((xyz[..., None, :] * t["to_rgb"]).sum(-1), shift).clamp(0, _INV_GAMMA_SIZE - 1)
+    return t["inv_gamma"][rgb].to(torch.uint8)

@@ -59,7 +59,16 @@ def test_every_module_imports_with_jax_blocked():
             "mofanerf_tpu_torch.utils.visualizer", "mofanerf_tpu_torch.cli.render_refine_trainset",
             "mofanerf_tpu_torch.cli.prepare_refine_trainset",
             "mofanerf_tpu_torch.cli.run_train_refinenet",
-            "mofanerf_tpu_torch.cli.run_refine"} <= set(mods)
+            "mofanerf_tpu_torch.cli.run_refine",
+            "mofanerf_tpu_torch.preprocess", "mofanerf_tpu_torch.preprocess.align",
+            "mofanerf_tpu_torch.preprocess.bn_fold", "mofanerf_tpu_torch.preprocess.matting",
+            "mofanerf_tpu_torch.preprocess.pipeline", "mofanerf_tpu_torch.preprocess.pose",
+            "mofanerf_tpu_torch.preprocess.relight", "mofanerf_tpu_torch.preprocess.segment",
+            "mofanerf_tpu_torch.preprocess.sh", "mofanerf_tpu_torch.cli.wild_preprocess",
+            "mofanerf_tpu_torch.datagen", "mofanerf_tpu_torch.datagen.mesh",
+            "mofanerf_tpu_torch.datagen.multiview", "mofanerf_tpu_torch.datagen.rasterize",
+            "mofanerf_tpu_torch.datagen.synthetic_faces",
+            "mofanerf_tpu_torch.cli.align_clip"} <= set(mods)
     code = f"""
 import sys
 
@@ -281,3 +290,34 @@ def test_refine_and_device_data_entry_points_default_to_the_card(tmp_path):
     with pytest.raises(SystemExit, match="gt_manifest"):
         prepare_refine_trainset.main(["--renders_dir", str(tmp_path), "--out_dir",
                                       str(tmp_path / "gt")])
+
+
+def test_preprocess_and_datagen_entry_points_default_to_the_card(tmp_path):
+    """The preprocessing and data-generation entry points ask for the card
+    too: the pipeline, its CLI, the two weight converters, the rasterizer,
+    render_identity and make_face_dataset (which writes nothing first)."""
+    from mofanerf_tpu_torch.cli import wild_preprocess
+    from mofanerf_tpu_torch.datagen.multiview import render_identity
+    from mofanerf_tpu_torch.datagen.rasterize import rasterize_mesh
+    from mofanerf_tpu_torch.datagen.synthetic_faces import make_face_dataset
+    from mofanerf_tpu_torch.preprocess.pipeline import preprocess_dir
+    from mofanerf_tpu_torch.preprocess.relight import convert_hourglass_weights
+    from mofanerf_tpu_torch.preprocess.segment import convert_bisenet_weights
+
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float64)
+    faces = np.array([[0, 1, 2]], np.int32)
+    calls = [
+        lambda: preprocess_dir(str(tmp_path)),
+        lambda: wild_preprocess.main(["--filePath", str(tmp_path)]),
+        lambda: convert_bisenet_weights({}),
+        lambda: convert_hourglass_weights({}),
+        lambda: rasterize_mesh(verts, faces, np.eye(3), np.eye(4), 8, 8),
+        lambda: render_identity(0, {0: (verts, faces)}, str(tmp_path / "r")),
+        lambda: make_face_dataset(str(tmp_path / "faces"), n_ids=1, exp_ids=(0,), res=8),
+    ]
+    if torch.cuda.is_available():
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "faces").exists()

@@ -158,3 +158,61 @@ def test_resize_linear_matches_cv2(src, dst):
         got = iio.resize_linear(img, (dst[1], dst[0]))
         assert got.shape == ref.shape and got.dtype == ref.dtype
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+
+
+def _top_down(data: bytes) -> bytes:
+    """The same BMP stored top-down: rows reversed, the height negated."""
+    off = struct.unpack("<I", data[10:14])[0]
+    w, h, _, bpp = struct.unpack("<iiHH", data[18:30])
+    stride = (w * bpp // 8 + 3) // 4 * 4
+    rows = [data[off + i * stride:off + (i + 1) * stride] for i in range(h)]
+    return data[:22] + struct.pack("<i", -h) + data[26:off] + b"".join(rows[::-1])
+
+
+@pytest.mark.parametrize("kind", ["rgb24", "rgbx32", "gray8", "palette8"])
+@pytest.mark.parametrize("order", ["bottom_up", "top_down"])
+def test_bmp_read_matches_imageio(tmp_path, kind, order):
+    """Uncompressed BMPs as imageio (Pillow) writes them: 24-bit, 32-bit
+    (Pillow reads its fourth byte as padding), 8-bit with the gray ramp for
+    a palette ([H, W]) and 8-bit through a colour palette; odd widths, so
+    rows are padded; bottom-up as written and top-down."""
+    img = _scene(13, 7 if kind != "rgbx32" else 6)
+    path = str(tmp_path / "x.bmp")
+    if kind == "rgb24":
+        imageio.imwrite(path, img)
+    elif kind == "rgbx32":
+        imageio.imwrite(path, np.concatenate([img, img[..., :1]], -1))
+    elif kind == "gray8":
+        imageio.imwrite(path, img[..., 1])
+    else:
+        Image.fromarray(img).quantize(16).save(path)
+    if order == "top_down":
+        with open(path, "rb") as f:
+            data = _top_down(f.read())
+        with open(path, "wb") as f:
+            f.write(data)
+    want = imageio.imread(path)
+    got = iio.imread(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unreadable_files_raise_naming_the_file(tmp_path):
+    path = tmp_path / "x.bmp"
+    imageio.imwrite(str(path), _scene(8, 8))
+    data = bytearray(path.read_bytes())
+    data[30:34] = struct.pack("<I", 1)   # RLE8
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=r"x\.bmp: BMP of 24 bits, compression 1"):
+        iio.imread(str(path))
+    (tmp_path / "y.gif").write_bytes(b"GIF89a")
+    with pytest.raises(ValueError, match=r"y\.gif: neither a PNG, a JPEG nor a BMP file"):
+        iio.imread(str(tmp_path / "y.gif"))
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+def test_png_write_gray_and_rgba(tmp_path, channels):
+    img = _scene(9, 11)
+    img = img[..., 0] if channels == 1 else np.concatenate([img, img[..., :1]], -1)
+    iio.write_png(str(tmp_path / "x.png"), img)
+    np.testing.assert_array_equal(imageio.imread(str(tmp_path / "x.png")), img)
