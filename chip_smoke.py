@@ -129,6 +129,9 @@ FIELD_TOL = {"bfloat16": (6e-2, 6e-3), "float32": (1e-4, 1e-5)}
 # bf16 is also held sharply at the packet shape, with contracting weights: the
 # scale and the atol of the TPU kernel's own test
 CONTRACT, CONTRACT_ATOL = 0.4, 5e-3
+# the convert phase: the side of run_render's frames from the converted directory, and the
+# points each field is held at against the reference's forward
+CONVERT_SIDE, CONVERT_POINTS = 128, 4096
 # the training phase: steps of the first run (a checkpoint at half of them) and of
 # the resumed one, frame side, the orbit's downsampling, steps timed and profiled
 TRAIN_STEPS = (8, 16)
@@ -816,6 +819,268 @@ def teacher_path_phase(failures, card, dev, field_rows, H=TEACHER_SIDE):
     return launches, sec
 
 
+def _random_linear(sd, g, key, cout, cin, gain=np.sqrt(2.0)):
+    """A torch Linear's weight [out, in] and bias, fan-in scaled (He)."""
+    import torch
+
+    sd[f"{key}.weight"] = torch.randn(cout, cin, generator=g) * (gain / np.sqrt(cin))
+    sd[f"{key}.bias"] = torch.randn(cout, generator=g) * 0.05
+
+
+def reference_field_sd(g, depth, width, skip=4, xyz_depth=3, pe=63, ve=27, shape_dim=50,
+                       exp_dim=30, tex_dim=256):
+    """A NeRF module's state dict in the reference's key layout
+    (models/model.py:121-137; the layout mofanerf_tpu/convert.py reads)."""
+    sd = {}
+    _random_linear(sd, g, "xyzEncode.linears1.Linear0", width, pe + exp_dim)
+    for i in range(xyz_depth):
+        _random_linear(sd, g, f"xyzEncode.linears1.Linear{i + 1}", width, width)
+    for name, code in (("linear_BiM_xyz", shape_dim), ("linear_uv_xyzBiM", tex_dim)):
+        _random_linear(sd, g, f"{name}.linears1.Linear0", width, code + width)
+        for i in range(skip):
+            _random_linear(sd, g, f"{name}.linears1.Linear{i + 1}", width, width)
+        _random_linear(sd, g, f"{name}.linears2.Linear0", width, code + 2 * width)
+        for i in range(depth - skip - 2):
+            _random_linear(sd, g, f"{name}.linears2.Linear{i + 1}", width, width)
+    _random_linear(sd, g, "alpha_linear.0", 1, width, gain=1.0)
+    _random_linear(sd, g, "linear_view_xyBMuv.0", width // 2, ve + width)
+    _random_linear(sd, g, "rgb_linear", 3, width // 2, gain=1.0)
+    return sd
+
+
+def reference_tar(g, step):
+    """The reference's training checkpoint (run_train.py:370-379) at full
+    width, seeded: coarse 8x256 (saved through DataParallel: `module.`
+    prefixes), fine 10x1024, the texture encoder (EnDeUVmap at a 512^2 UV),
+    the ISM (StyleModule), 20 [1, 30] expression latents and global_step."""
+    import torch
+
+    tex = {}
+    chans = (3, 32, 32, 32, 32, 64, 128, 256)
+    for n, ci in enumerate(range(0, 14, 2)):
+        _random_conv(tex, g, f"encoder.down1.0.{ci}", chans[n + 1], chans[n], 4, bias=True)
+    _random_linear(tex, g, "encoder.down2.0", 512, 256 * 4 * 4)
+    _random_linear(tex, g, "encoder.mu", 256, 512, gain=1.0)
+    for di in (0, 2, 4):
+        _random_linear(tex, g, f"encoder.decoding.{di}", 256, 256)
+    ism = {}
+    for i, cin in enumerate((50, 256, 256, 256)):
+        _random_linear(ism, g, f"linears1.Linear{i}", 256, cin)
+    _random_linear(ism, g, "linears_scale", 30, 256, gain=1.0)
+    _random_linear(ism, g, "linears_bias", 30, 256, gain=1.0)
+    coarse = reference_field_sd(g, 8, 256)
+    return {"global_step": step,
+            "network_fn_state_dict": {f"module.{k}": v for k, v in coarse.items()},
+            "network_fine_state_dict": reference_field_sd(g, 10, 1024),
+            "network_render_textureEncoder": tex,
+            "network_render_idSpecific": ism,
+            "optimizer_state_dict": {"state": {}, "param_groups": []},
+            "expression_latent_codes_sigma": [torch.randn(1, 30, generator=g) * 0.3
+                                              for _ in range(20)]}
+
+
+def reference_field_forward(sd, depth, skip, xyz_depth, pts_embed, dirs_embed, exp, shape, tex):
+    """The reference NeRF.forward (models/model.py:121-137) with F.linear over
+    the raw state dict: an oracle independent of the converter."""
+    import torch
+    import torch.nn.functional as F
+
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+    def mlp(prefix, x, n1, n2):
+        h = x
+        for i in range(n1):
+            h = F.relu(F.linear(h, sd[f"{prefix}.linears1.Linear{i}.weight"],
+                                sd[f"{prefix}.linears1.Linear{i}.bias"]))
+        if n2:
+            h = torch.cat([x, h], dim=1)
+            for i in range(n2):
+                h = F.relu(F.linear(h, sd[f"{prefix}.linears2.Linear{i}.weight"],
+                                    sd[f"{prefix}.linears2.Linear{i}.bias"]))
+        return h
+
+    n = pts_embed.shape[0]
+    xyz = mlp("xyzEncode", torch.cat([pts_embed, exp.expand(n, -1)], 1), 1 + xyz_depth, 0)
+    feat = mlp("linear_BiM_xyz", torch.cat([shape.expand(n, -1), xyz], 1), 1 + skip,
+               depth - skip - 1)
+    alpha = F.linear(feat, sd["alpha_linear.0.weight"], sd["alpha_linear.0.bias"])
+    feat = mlp("linear_uv_xyzBiM", torch.cat([tex.expand(n, -1), feat], 1), 1 + skip,
+               depth - skip - 1)
+    v = F.relu(F.linear(torch.cat([dirs_embed, feat], 1), sd["linear_view_xyBMuv.0.weight"],
+                        sd["linear_view_xyBMuv.0.bias"]))
+    return torch.cat([F.linear(v, sd["rgb_linear.weight"], sd["rgb_linear.bias"]), alpha], 1)
+
+
+def convert_phase(failures, card, dev, H=CONVERT_SIDE):
+    """Weights from outside the port: a seeded full-width reference `.tar`
+    through the convert_ckpt CLI into a `.pt`, held against the in-process
+    conversion, both fields against the F.linear oracle of the reference's
+    modules (plain f32 and B1 in bf16), run_render from the converted directory
+    through B1 against render_frame, one packet under utils/profiling.trace,
+    and bilinear_sample on the card against the CPU."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.cli import convert_ckpt
+    from mofanerf_tpu_torch.config import Config
+    from mofanerf_tpu_torch.convert import convert_checkpoint
+    from mofanerf_tpu_torch.models.field import apply_field, fold_conditioning
+    from mofanerf_tpu_torch.ops import bilinear_sample
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.ops.rays import get_rays, pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (exp_code_for, prepare_conditioning,
+                                                    render_frame, render_rays)
+    from mofanerf_tpu_torch.train.checkpoint import restore_checkpoint
+    from mofanerf_tpu_torch.utils import profiling
+    from mofanerf_tpu_torch.utils.tree import flatten_with_keystr
+
+    spec = Config().model_spec()   # the CLIs' default: coarse 8x256, fine 10x1024, bf16
+    n_views, step = 2, 123456
+    packets = -(-H * H // spec.render.packet_size)
+    expected = 2 * packets * n_views
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        tar = os.path.join(tmp, "reference.tar")
+        ckpt = reference_tar(torch.Generator().manual_seed(21), step)
+        t0 = time.perf_counter()
+        torch.save(ckpt, tar)
+        out["tar_save_s"] = time.perf_counter() - t0
+        ckpt_dir = os.path.join(tmp, "converted")
+        t0 = time.perf_counter()
+        _, printed = run_cli(["--tar", tar, "--out_dir", ckpt_dir, "--device", str(dev)],
+                             convert_ckpt)
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        pt = os.path.join(ckpt_dir, f"{step:06d}.pt")
+        out["tar_bytes"], out["pt_bytes"] = os.path.getsize(tar), os.path.getsize(pt)
+        params = convert_checkpoint(tar, spec, dev)
+        from mofanerf_tpu_torch.train.state import TrainState, make_optimizer
+
+        like = TrainState(map_tree(torch.zeros_like, params),
+                          make_optimizer().init(params), torch.zeros((), dtype=torch.int32,
+                                                                     device=dev))
+        back = restore_checkpoint(ckpt_dir, like)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(flatten_with_keystr(back.params), flatten_with_keystr(params)))
+        zero_moments = all(not t.any() for _, t in flatten_with_keystr(back.opt_state.mu)) and \
+            all(not t.any() for _, t in flatten_with_keystr(back.opt_state.nu))
+        print(f"convert: reference .tar {out['tar_bytes']} bytes saved in "
+              f"{out['tar_save_s']:.2f} s; convert_ckpt --device {dev} in {out['cli_s']:.2f} s "
+              f"-> {os.path.basename(pt)} ({out['pt_bytes']} bytes); restores to the "
+              f"in-process conversion bit for bit: {same}; step {int(back.step)} "
+              f"(global_step {step}); Adam count {int(back.opt_state.count)}, zero moments "
+              f"{zero_moments}", flush=True)
+        if not same or int(back.step) != step or int(back.opt_state.count) != 0 \
+                or not zero_moments or "step 123456" not in printed:
+            fail(failures, "convert_ckpt's .pt differs from the in-process conversion")
+
+        # both fields against the F.linear oracle of the reference's modules, f32
+        # (TF32 is off for matmuls): the plain field in f32, and B1 in bf16
+        gen = torch.Generator().manual_seed(22)
+        pts = (torch.rand((CONVERT_POINTS, 3), generator=gen) * 10.0 - 5.0).to(dev)
+        dirs = torch.randn((CONVERT_POINTS, 3), generator=gen).to(dev)
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+        shape, exp, tex = (torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256))
+        errs = {}
+        for name, key, depth in (("coarse", "network_fn_state_dict", 8),
+                                 ("fine", "network_fine_state_dict", 10)):
+            cfg = getattr(spec, name)
+            f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+            sd = {k: v.to(dev) for k, v in ckpt[key].items()}
+            pe, de = fourier_embed(pts, cfg.multires), fourier_embed(dirs, cfg.multires_views)
+            with torch.no_grad():
+                oracle = reference_field_forward(sd, depth, cfg.skip, cfg.xyz_depth, pe, de,
+                                                 exp[None], shape[None], tex[None])
+                plain = torch.cat(apply_field(params[name], pts, dirs, shape, exp, tex, f32), 1)
+                fused = fk.pack_fused_params(params[name],
+                                             fold_conditioning(params[name], shape, exp, tex), cfg)
+                b1 = torch.cat(fk.fused_field_apply(fused, pe.contiguous(),
+                                                    (de @ params[name]["view"]["w_dirs"])
+                                                    .contiguous(), cfg, 1), 1)
+            scale = max(1.0, float(oracle.abs().max()))
+            for label, got, dt_name in (("plain f32", plain, "float32"), ("B1 bf16", b1,
+                                                                          "bfloat16")):
+                diff = (got.float() - oracle).abs()
+                err, rms = float(diff.max()), float(diff.square().mean().sqrt())
+                tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
+                errs[f"{name} {label}"] = err
+                print(f"convert: {name} field {label} vs the F.linear oracle on "
+                      f"{CONVERT_POINTS} points: max|diff| {err:.3e} rms {rms:.3e} (tol max "
+                      f"{tol:.3e} rms {tol_rms:.3e} = {FIELD_TOL[dt_name]} x max(1, max|oracle| "
+                      f"{float(oracle.abs().max()):.3f}))", flush=True)
+                if not (err <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
+                    fail(failures, f"convert: the {name} field ({label}) differs from the "
+                                   f"reference forward by {err}")
+        out["oracle_max_abs_err"] = errs
+
+        # ---- the main path: run_render from the converted directory, B1 counted
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        frames, _ = run_cli(["--out_dir", os.path.join(tmp, "frames"), "--ckpt_dir", ckpt_dir,
+                             "--n_views", str(n_views), "--render_factor", str(512 // H),
+                             "--basedir", os.path.join(tmp, "logs"),
+                             "--uvdir", os.path.join(tmp, "uv"),
+                             "--shape_codes_path", os.path.join(tmp, "none.npy"),
+                             "--device", str(dev)])
+        torch.cuda.synchronize()
+        out["render_s"] = time.perf_counter() - t0
+        out["launches"] = fk.launch_count
+
+    # the CLI's conditioning (no identity factors, no UV map: zero codes; expression 0)
+    # and orbit, through render_frame on the in-process conversion
+    zeros = lambda n: torch.zeros(n, device=dev)
+    with torch.no_grad():
+        cond = prepare_conditioning(params, spec, zeros(spec.shape_dim),
+                                    exp_code_for(params, 0), zeros(spec.tex_dim))
+    focal = 1200.0 / (512 // H)
+    K = np.array([[focal, 0, 0.5 * H], [0, focal, 0.5 * H], [0, 0, 1]], np.float32)
+    diffs = []
+    for i, a in enumerate(np.linspace(-180, 180, n_views + 1)[:-1]):
+        want = render_frame(params, spec, cond, H, H, K, pose_spherical(a, 0.0, 16.0)[:3])
+        diffs.append(float(np.abs(frames[i] - want["rgb"].cpu().numpy()).max()))
+    acc = float(want["acc"].mean())
+    print(f"convert: run_render --ckpt_dir <converted> {n_views} views {H}x{H} in "
+          f"{out['render_s']:.3f} s (model restore included); max|frame - render_frame| "
+          f"{max(diffs):.3e} (tol 1e-6); mean acc {acc:.3f}; field kernel launches "
+          f"{out['launches']} (expected {expected}: a coarse and a fine one a packet)",
+          flush=True)
+    if out["launches"] != expected:
+        fail(failures, f"convert: field kernel launches {out['launches']} != {expected}")
+    if frames.shape != (n_views, H, H, 3) or not np.isfinite(frames).all() or max(diffs) > 1e-6:
+        fail(failures, f"convert: run_render's frames differ from render_frame's by {max(diffs)}")
+
+    # one teacher packet under utils/profiling.trace: the file names B1's kernel
+    rays_o, rays_d = get_rays(H, H, torch.from_numpy(K).to(dev),
+                              torch.from_numpy(pose_spherical(0.0, 0.0, 16.0)[:3]).to(dev))
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        with profiling.trace(tmp) as prof:
+            with profiling.annotate("teacher packet"), torch.no_grad():
+                render_rays(params, spec, cond, rays_o.reshape(-1, 3)[:spec.render.packet_size],
+                            rays_d.reshape(-1, 3)[:spec.render.packet_size])
+            torch.cuda.synchronize()
+        with open(prof.trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if "field_kernel" in n)
+    print(f"convert: profiling.trace wrote {len(names)} event names; B1's: {kernels}; the "
+          f"annotation: {'teacher packet' in names}", flush=True)
+    if not kernels or "teacher packet" not in names:
+        fail(failures, "convert: the trace does not name the field kernel")
+
+    uv = torch.rand((512, 512, 3), generator=gen)
+    coords = torch.rand((4096, 2), generator=gen) * 520.0 - 4.0
+    card_uv = bilinear_sample(uv.to(dev), coords.to(dev)).cpu()
+    uv_err = float((card_uv - bilinear_sample(uv, coords)).abs().max())
+    print(f"convert: bilinear_sample 4096 lookups in a 512^2 map, card vs CPU max|diff| "
+          f"{uv_err:.3e} (tol 1e-6)", flush=True)
+    if not uv_err <= 1e-6:
+        fail(failures, f"convert: bilinear_sample differs between card and CPU by {uv_err}")
+    out["bilinear_max_abs_err"] = uv_err
+    out["card"] = card
+    return out
+
+
 def encoder_flops(spec):
     """Forward operations of the texture encoder on one UV map: seven 4x4
     stride-2 convolutions, the FC to 512, `mu`, three decoding layers."""
@@ -1100,16 +1365,17 @@ class _Tee:
         return "".join(self.parts)
 
 
-def run_cli(argv):
-    """run_render.main(argv): (frames, what it printed)."""
+def run_cli(argv, cli=None):
+    """`cli`.main(argv), run_render's by default: (what it returned, what it
+    printed)."""
     import contextlib
 
     from mofanerf_tpu_torch.cli import run_render
 
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        frames = run_render.main(argv)
-    return frames, tee.text()
+        result = (cli or run_render).main(argv)
+    return result, tee.text()
 
 
 def profile_distill_steps(card, dev, spec, ckpt_dir, n_timed=DISTILL_TIMED_STEPS,
@@ -2691,6 +2957,10 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     field_launches, teacher_sec = teacher_path_phase(failures, card, dev, field_rows)
     print(f"path phase (teacher): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    converted = convert_phase(failures, card, dev)
+    print(f"path phase (convert: reference .tar -> convert_ckpt -> run_render): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
         t0 = time.perf_counter()
         train_launches, final, train_cfg, batches, render_flags = train_phase(
@@ -2723,6 +2993,7 @@ def main(argv) -> int:
         datagen, wild = wild_phase(failures, card, dev, render_flags, work)
         print(f"path phase (data generation, wild-photo preprocessing, run_fit): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"convert": converted}), flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
     print(json.dumps({"refine": dict(refined, card=card)}), flush=True)
@@ -2744,7 +3015,8 @@ def main(argv) -> int:
                                       ("evaluate", "evaluate --render_factor 2")) // 2,
                       "refine_corpus": refined["launches"]["refine_corpus"] // 2,
                       "train_device_data": dd["launches"] // 2,
-                      "wild_fit": wild["launches"] // 2}
+                      "wild_fit": wild["launches"] // 2,
+                      "convert": converted["launches"] // 2}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
                        ("--distill", "--distill_cond", "--distill_avatars")),

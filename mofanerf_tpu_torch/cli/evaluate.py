@@ -5,8 +5,9 @@ truth.
     python -m mofanerf_tpu_torch.cli.evaluate [--ckpt_dir dir] [--out_dir out] \
         [--max_views 25] [--render_factor 1] [--fast] [--device cuda] [config flags]
 
-The model is the newest `.pt` in `--ckpt_dir` (else
-`basedir/expname/checkpoints`); there must be one. Each view renders through
+The model is the newest checkpoint (a `.pt`, or the JAX package's Orbax
+step) in `--ckpt_dir` (else `basedir/expname/checkpoints`); there must be
+one. Each view renders through
 `render_frame` (the fused field kernel on the card), or with `--fast` through
 a grid of the coarse field built once per (identity, expression) and
 `render_frame_fast` (the fine field through the kernel at 32 samples a

@@ -6,8 +6,9 @@ mofanerf_tpu/cli/export_grids.py).
         [--device cuda] [config flags]
 
 Builds one density grid of the coarse field per (identity, expression) from
-the newest `.pt` checkpoint (`build_proposal_grid`: sigma-only probes at the
-cell centres, threshold, dilation) and saves them to one compressed `.npz`:
+the newest checkpoint, a `.pt` or the JAX package's Orbax step
+(`build_proposal_grid`: sigma-only probes at the cell centres, threshold,
+dilation) and saves them to one compressed `.npz`:
 `resolution`, `aabb_min`, `aabb_max` and `occ_<pid>_<exp>` (the occupancy
 bits, `np.packbits`), the JAX package's format, so either package reads the
 other's file. `load_exported_grid` gives one back for `render_frame_fast`.

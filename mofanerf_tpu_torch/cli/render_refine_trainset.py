@@ -17,8 +17,9 @@ Each frame renders through `render_frame` (the fused field kernel on the
 card, at the teacher's packet shapes); `--fast` builds a grid of the coarse
 field once per (identity, expression) and renders through
 `render_frame_fast` (the fine field through the kernel at 32 samples a ray).
-The teacher is the newest `.pt` in `--ckpt_dir` (else
-`basedir/expname/checkpoints`), or seeded weights with a WARNING.
+The teacher is the newest checkpoint (a `.pt`, or the JAX package's Orbax
+step) in `--ckpt_dir` (else `basedir/expname/checkpoints`), or seeded
+weights with a WARNING.
 """
 from __future__ import annotations
 

@@ -12,8 +12,9 @@ Expects the preprocessing pipeline's output beside the photo's folder:
 (tools/wildData_preprocess.py). Writes to `<parent>/fitting/<folder>_<name>`:
 `target.png`, `fit_params.npz` (+ `.opt.pt`), previews `fit_*.png`; the
 render modes read the fitted codes there and write `novel_yaw*.png` or
-`exp_*.png` (+ preset swaps). The model is the newest `.pt` in `--ckpt_dir`
-(else `basedir/expname/checkpoints`); without one it fits against seeded
+`exp_*.png` (+ preset swaps). The model is the newest checkpoint (a `.pt`,
+or the JAX package's Orbax step) in `--ckpt_dir` (else
+`basedir/expname/checkpoints`); without one it fits against seeded
 weights and says so. `--device cpu` runs the plain PyTorch path on the CPU.
 """
 from __future__ import annotations

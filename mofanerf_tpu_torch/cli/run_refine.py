@@ -4,7 +4,8 @@
         [--name refine] [--checkpoints_dir ./checkpoints] [--loadSize 512] [--ngf 32] \
         [--device cuda]
 
-Runs the generator of the newest `.pt` in `<checkpoints_dir>/<name>/checkpoints`
+Runs the generator of the newest checkpoint (a `.pt`, or the JAX package's
+Orbax step) in `<checkpoints_dir>/<name>/checkpoints`
 (or a seeded one, with a WARNING) over the flat directory of rendered frames
 and writes each result to the sibling directory `refine/` as a PNG.
 """
@@ -16,7 +17,7 @@ import os
 import torch
 
 from mofanerf_tpu_torch.data.refine_dataset import RefinePairDataset
-from mofanerf_tpu_torch.train.checkpoint import latest_port_step, restore_checkpoint
+from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint
 from mofanerf_tpu_torch.train.refine import RefineConfig, init_refine_state, refine_inference
 from mofanerf_tpu_torch.utils.device import resolve_device
 from mofanerf_tpu_torch.utils.visualizer import Visualizer
@@ -37,8 +38,8 @@ def main(argv=None) -> list:
     cfg = RefineConfig(ngf=args.ngf, load_size=args.loadSize)
     state = init_refine_state(torch.Generator().manual_seed(0), cfg, device=dev)
     ckpt_dir = os.path.join(args.checkpoints_dir, args.name, "checkpoints")
-    if latest_port_step(ckpt_dir) is not None:
-        state = restore_checkpoint(ckpt_dir, state)
+    if latest_step(ckpt_dir) is not None:
+        state = restore_checkpoint(ckpt_dir, state, spec=cfg)
         print(f"loaded refiner checkpoint (step {int(state.step)})")
     else:
         print(f"WARNING: no checkpoint at {ckpt_dir}; using untrained generator")

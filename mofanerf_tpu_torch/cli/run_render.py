@@ -17,9 +17,10 @@ teacher two-pass render, the occupancy-culled render, or a distilled student.
         --distill_avatars 0,1 --student_path avatars.npz ...
 
 Renders `--n_views` poses on the spherical orbit and writes one PNG a frame.
-The teacher's weights come from the newest `.pt` checkpoint of the port's
-training (`--ckpt_dir`, else `basedir/expname/checkpoints`); without one it
-renders seeded, untrained weights and says so. The person's UV map
+The teacher's weights come from the newest checkpoint in `--ckpt_dir` (else
+`basedir/expname/checkpoints`): a `.pt` of the port's training or of
+`cli/convert_ckpt.py`, or a step the JAX package saved with Orbax; without
+one it renders seeded, untrained weights and says so. The person's UV map
 (`uvdir/<person>/1_neutral.jpg`) is encoded when it exists. The render
 settings (near, far, background, density activation) are the config's on
 every route; a student artifact's provenance overrides its box and near/far.
@@ -37,9 +38,6 @@ every route; a student artifact's provenance overrides its box and near/far.
   needs no teacher.
 On the card every packet runs the CUDA kernels; with `--device cpu` their
 plain PyTorch versions run instead.
-
-Not ported yet, and refused with a message naming the ROADMAP item: the
-JAX package's Orbax checkpoints (A3, queued under A11).
 """
 from __future__ import annotations
 

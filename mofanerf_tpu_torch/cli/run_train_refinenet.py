@@ -10,7 +10,9 @@
 Trains the pix2pixHD refiner on the (render, ground truth) pairs of
 `<dataroot>/<nerf_folder>` and `<dataroot>/<gt_folder>`, and saves
 `<checkpoints_dir>/<name>/checkpoints/<step:06d>.pt` after each
-`save_epoch_freq` epochs, the last one and at `--max_steps`.
+`save_epoch_freq` epochs, the last one and at `--max_steps`;
+`--continue_train` resumes from the newest checkpoint there (a `.pt`, or the
+JAX package's Orbax step).
 
 `--vgg_weights` is the pickle the JAX package reads: its
 `convert_torchvision_vgg19` layout ({"params": {"conv{b}_{c}": {"kernel",
@@ -31,8 +33,7 @@ import torch
 
 from mofanerf_tpu_torch.data.refine_dataset import RefinePairDataset
 from mofanerf_tpu_torch.models.refine.losses import vgg_from_jax_layout
-from mofanerf_tpu_torch.train.checkpoint import (latest_port_step, restore_checkpoint,
-                                                 save_checkpoint)
+from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from mofanerf_tpu_torch.train.refine import (RefineConfig, init_refine_state,
                                              make_refine_optimizers, refine_train_step)
 from mofanerf_tpu_torch.utils.device import resolve_device, to_device
@@ -109,8 +110,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, use_vgg=False)
 
     ckpt_dir = os.path.join(out_dir, "checkpoints")
-    if args.continue_train and latest_port_step(ckpt_dir) is not None:
-        state = restore_checkpoint(ckpt_dir, state)
+    if args.continue_train and latest_step(ckpt_dir) is not None:
+        state = restore_checkpoint(ckpt_dir, state, spec=cfg)
         print(f"resumed at step {int(state.step)}")
 
     rng = np.random.default_rng(0)

@@ -44,8 +44,7 @@ from mofanerf_tpu_torch.ops.occupancy import (OccupancyGrid, load_grid, save_gri
 from mofanerf_tpu_torch.ops.rays import get_rays_at
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 prepare_conditioning, render_frame, render_path)
-from mofanerf_tpu_torch.train.checkpoint import (latest_step, orbax_steps, restore_checkpoint,
-                                                 save_checkpoint)
+from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from mofanerf_tpu_torch.train.state import (Batch, create_train_state, make_optimizer,
                                             train_step)
 from mofanerf_tpu_torch.utils.device import resolve_device, to_device
@@ -134,8 +133,8 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
                                cfg.lrate_decay, device=dev)
     tx = make_optimizer(cfg.lrate, cfg.lrate_decay)
     start = 0
-    if not cfg.no_reload and (latest_step(ckpt_dir) is not None or orbax_steps(ckpt_dir)):
-        state = restore_checkpoint(ckpt_dir, state)
+    if not cfg.no_reload and latest_step(ckpt_dir) is not None:
+        state = restore_checkpoint(ckpt_dir, state, spec=spec)
         start = int(state.step)
         logger.note(f"resumed from checkpoint at step {start}")
     else:

@@ -1,16 +1,22 @@
 """The port's train-state checkpoints (mofanerf_tpu_torch/train/checkpoint.py):
 a save restores bit for bit, `latest_step` finds the newest `.pt`, a run
 resumed after 3 steps ends where 5 uninterrupted steps end (bit for bit on
-the CPU), and a directory that holds only the JAX package's Orbax steps
-raises naming ROADMAP A3."""
+the CPU), and a directory that holds only the JAX package's Orbax steps is
+read: its newest step restores as the bridge carries the JAX state across
+(tests/test_torch_orbax.py holds the reader itself)."""
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mofanerf_tpu.models.field import FieldConfig as JFieldConfig
+from mofanerf_tpu.render import renderer as jr
+from mofanerf_tpu.train import state as jst
 from mofanerf_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+from mofanerf_tpu_torch import bridge
 from mofanerf_tpu_torch.models.field import FieldConfig
 from mofanerf_tpu_torch.render.renderer import MoFaNeRF, RenderConfig
 from mofanerf_tpu_torch.train import checkpoint as ck
@@ -95,10 +101,20 @@ def test_resumed_run_equals_uninterrupted_run(tmp_path):
 
 
 def test_orbax_only_directory_raises_naming_a3(tmp_path):
-    jax_save_checkpoint(str(tmp_path), {"w": jnp.ones(3)}, 10)
-    assert ck.orbax_steps(str(tmp_path)) == [10] and ck.latest_step(str(tmp_path)) is None
-    with pytest.raises(FileNotFoundError, match="ROADMAP A3"):
-        ck.restore_checkpoint(str(tmp_path), _state())
+    """The directory was refused, naming ROADMAP A3, before the port read
+    Orbax steps; now its newest step restores, and a step that holds another
+    tree raises naming what differs. An empty directory still raises."""
+    fkw = dict(depth=6, width=32, multires=4, multires_views=2)
+    jspec = jr.MoFaNeRF(coarse=JFieldConfig(**fkw), fine=JFieldConfig(**fkw),
+                        render=jr.RenderConfig(n_coarse=8, n_importance=8), uv_size=128)
+    jstate = jst.create_train_state(jax.random.PRNGKey(4), jspec)
+    jax_save_checkpoint(str(tmp_path), jstate, 10)
+    assert ck.orbax_steps(str(tmp_path)) == [10] and ck.latest_step(str(tmp_path)) == 10
+    back = ck.restore_checkpoint(str(tmp_path), _state(), spec=SPEC)
+    _assert_same(back, bridge.train_state_to_torch(jax.tree.map(np.asarray, jstate), SPEC, "cpu"))
+    jax_save_checkpoint(str(tmp_path), {"w": jnp.ones(3)}, 20)
+    with pytest.raises(ValueError, match="does not hold this model's state"):
+        ck.restore_checkpoint(str(tmp_path), _state(), spec=SPEC)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         ck.restore_checkpoint(str(tmp_path / "empty"), _state())
 

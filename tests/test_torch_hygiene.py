@@ -1,6 +1,7 @@
 """The port stands alone: no module of mofanerf_tpu_torch (nor chip_smoke.py)
-imports jax or mofanerf_tpu, every module imports with both blocked, and
-the entry points refuse to fall back to the CPU when no card is present."""
+imports jax, mofanerf_tpu or the Orbax stack (orbax, tensorstore, zstandard),
+every module imports with them blocked, and the entry points refuse to fall
+back to the CPU when no card is present."""
 import ast
 import os
 import subprocess
@@ -42,7 +43,7 @@ def test_no_jax_imports_in_source(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu", "cv2", "imageio",
-                            "PIL"), (path, name)
+                            "PIL", "orbax", "tensorstore", "zstandard"), (path, name)
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -68,20 +69,25 @@ def test_every_module_imports_with_jax_blocked():
             "mofanerf_tpu_torch.datagen", "mofanerf_tpu_torch.datagen.mesh",
             "mofanerf_tpu_torch.datagen.multiview", "mofanerf_tpu_torch.datagen.rasterize",
             "mofanerf_tpu_torch.datagen.synthetic_faces",
-            "mofanerf_tpu_torch.cli.align_clip"} <= set(mods)
+            "mofanerf_tpu_torch.cli.align_clip", "mofanerf_tpu_torch.convert",
+            "mofanerf_tpu_torch.cli.convert_ckpt", "mofanerf_tpu_torch.train.orbax",
+            "mofanerf_tpu_torch.utils.ocdbt", "mofanerf_tpu_torch.utils.zstd",
+            "mofanerf_tpu_torch.utils.profiling", "mofanerf_tpu_torch.ops.uv_sample"} <= set(mods)
     code = f"""
 import sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu", "cv2", "imageio", "PIL"):
+        if root in ("jax", "jaxlib", "flax", "optax", "mofanerf_tpu", "cv2", "imageio", "PIL",
+                    "orbax", "tensorstore", "zstandard"):
             raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, Block())
 for m in list(sys.modules):
-    if m.split(".")[0] in ("jax", "jaxlib", "mofanerf_tpu", "cv2", "imageio", "PIL"):
+    if m.split(".")[0] in ("jax", "jaxlib", "mofanerf_tpu", "cv2", "imageio", "PIL", "orbax",
+                           "tensorstore", "zstandard"):
         del sys.modules[m]
 import importlib
 for m in {mods!r}:
@@ -214,8 +220,10 @@ def test_fitting_entry_points_default_to_the_card(tmp_path):
 def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
     """The CLI's teacher route on the CPU at a tiny size: seeded weights, a UV
     JPEG, a port checkpoint; the --fast and --distill routes from the same
-    teacher; and the refusal of an Orbax-only directory, naming the ROADMAP
-    item that lifts it."""
+    teacher; and a directory of the JAX package's Orbax steps (refused, naming
+    ROADMAP A3, before the port read them): a step the JAX package saved
+    renders the PNGs the JAX run_render writes from it (f32; within one level
+    of 255, the rounding of a last bit)."""
     from mofanerf_tpu_torch.cli import run_render
     from mofanerf_tpu_torch.config import load_config
     from mofanerf_tpu_torch.train.checkpoint import save_checkpoint
@@ -253,13 +261,56 @@ def test_teacher_cli_renders_and_refuses_by_roadmap_item(tmp_path):
     save_checkpoint(str(tmp_path / "pt"), state, 5)
     trained = run_render.main(argv + ["--ckpt_dir", str(tmp_path / "pt")])
     assert np.isfinite(trained).all() and np.abs(trained - textured).max() > 0
-    # a directory of Orbax steps only is refused
-    os.makedirs(tmp_path / "ckpts" / "1000")
-    with pytest.raises(SystemExit, match="ROADMAP A3"):
-        run_render.main(argv + ["--person", "1", "--ckpt_dir", str(tmp_path / "ckpts")])
+    # a directory of the JAX package's Orbax steps is read
+    import imageio.v2 as imageio
+    import jax
+
+    from mofanerf_tpu.cli import run_render as jax_run_render
+    from mofanerf_tpu.config import load_config as jax_load_config
+    from mofanerf_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+    from mofanerf_tpu.train.state import create_train_state as jax_create_train_state
+
+    f32 = ["--compute_dtype", "float32", "--ckpt_dir", str(tmp_path / "ckpts")]
+    flags = argv[argv.index("--netwidth"):argv.index("--device")] + ["--compute_dtype", "float32"]
+    jspec = jax_load_config(flags).model_spec()
+    jax_save_checkpoint(str(tmp_path / "ckpts"),
+                        jax_create_train_state(jax.random.PRNGKey(2), jspec), 1000)
+    jax_argv = argv[:argv.index("--device")] + f32
+    jax_argv[jax_argv.index("--out_dir") + 1] = str(tmp_path / "jax")
+    jax_run_render.main(jax_argv)
+    from_jax = run_render.main(argv + f32)
+    assert np.isfinite(from_jax).all() and np.abs(from_jax - trained).max() > 0
+    for name in ("000.png", "001.png"):
+        ours = imageio.imread(tmp_path / "t" / name).astype(int)
+        theirs = imageio.imread(tmp_path / "jax" / name).astype(int)
+        assert ours.shape == theirs.shape and np.abs(ours - theirs).max() <= 1, name
     # a student distilled from the teacher and served, with no artifact path
     student = run_render.main(argv + ["--person", "1", "--distill", "--distill_steps", "2"])
     assert student.shape == (2, 8, 8, 3) and np.isfinite(student).all()
+
+
+def test_weights_in_entry_points_default_to_the_card(tmp_path):
+    """The converter of the reference's `.tar` and its CLI ask for the card
+    too (before they read the file)."""
+    from mofanerf_tpu_torch import convert
+    from mofanerf_tpu_torch.cli import convert_ckpt
+    from mofanerf_tpu_torch.render.renderer import MoFaNeRF
+
+    calls = [
+        lambda: convert.convert_ism({}),
+        lambda: convert.convert_exp_codes([]),
+        lambda: convert.convert_tex_encoder({}),
+        lambda: convert_ckpt.main(["--tar", str(tmp_path / "missing.tar"), "--out_dir",
+                                   str(tmp_path / "out")]),
+    ]
+    if torch.cuda.is_available():
+        assert convert.convert_exp_codes([]).device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(FileNotFoundError):
+        convert.convert_checkpoint(str(tmp_path / "missing.tar"), MoFaNeRF(), "cpu")
 
 
 def test_refine_and_device_data_entry_points_default_to_the_card(tmp_path):

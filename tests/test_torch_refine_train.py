@@ -11,7 +11,8 @@ downsamplings, 2 blocks, n_layers_D 2, 32 x 32).
   gradient that is 0 but for rounding (within 2.5 x lr, under 2% of the
   elements); the counts and the step.
 - The rate across the constant-to-decay boundary against optax's.
-- The checkpoint round trip and the refusal of an Orbax-only directory.
+- The checkpoint round trip, and a directory of the JAX package's Orbax
+  steps read (refused before the port read them).
 """
 import dataclasses
 import os
@@ -27,8 +28,7 @@ from mofanerf_tpu.models.refine.losses import VGG19Features as JVGG
 from mofanerf_tpu.train import refine as jref
 from mofanerf_tpu_torch import bridge
 from mofanerf_tpu_torch.train import refine as tref
-from mofanerf_tpu_torch.train.checkpoint import (latest_port_step, restore_checkpoint,
-                                                 save_checkpoint)
+from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from mofanerf_tpu_torch.utils.tree import flatten_with_keystr
 
 SZ = 32
@@ -148,10 +148,21 @@ def test_checkpoint_round_trip(tmp_path):
     for (k, x), (_, y) in zip(flatten_with_keystr(tref.refine_tree(back)),
                               flatten_with_keystr(tref.refine_tree(state))):
         assert torch.equal(x, y), k
-    # a directory of Orbax steps only is refused, naming the ROADMAP item
-    os.makedirs(tmp_path / "orbax" / "000010")
-    with pytest.raises(SystemExit, match="A11"):
-        latest_port_step(str(tmp_path / "orbax"))
+    # a directory of Orbax steps only (refused, naming the ROADMAP item, before the
+    # port read them) is read: a digit-named directory without a step is not one
+    from mofanerf_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    os.makedirs(tmp_path / "orbax" / "000011")
+    assert latest_step(str(tmp_path / "orbax")) is None
+    jcfg = jref.RefineConfig(**SMALL)
+    js = jax.jit(lambda k: jref.init_refine_state(k, jcfg, image_size=SZ))(jax.random.PRNGKey(6))
+    jax_save_checkpoint(str(tmp_path / "orbax"), js, 10)
+    assert latest_step(str(tmp_path / "orbax")) == 10
+    back = restore_checkpoint(str(tmp_path / "orbax"), fresh, spec=cfg)
+    want = bridge.refine_state_to_torch(jax.tree.map(np.asarray, js), cfg, device="cpu")
+    for (k, x), (_, y) in zip(flatten_with_keystr(tref.refine_tree(back)),
+                              flatten_with_keystr(tref.refine_tree(want))):
+        assert torch.equal(x, y), k
     # another model's state is refused
     with pytest.raises(ValueError, match="does not hold"):
         restore_checkpoint(str(tmp_path), tref.init_refine_state(

@@ -8,8 +8,9 @@ levels), a port checkpoint of seeded weights.
   and write the novel views (each equal to `render_fit_frame` of the codes)
   and the re-rigged frames with the preset swaps; `--is_load_par` resumes;
 - the default device is the card: without one the CLI raises;
-- a directory of the JAX package's Orbax steps only is refused, naming the
-  ROADMAP item, as run_render refuses it."""
+- a directory of the JAX package's Orbax steps only (refused, naming ROADMAP
+  A3, before the port read them) is read: a step of another tree is refused
+  naming what differs, a TrainState of the model is fitted against."""
 import os
 
 import jax.numpy as jnp
@@ -94,11 +95,22 @@ def test_run_fit_defaults_to_the_card(world):
         run_fit.main(argv)
 
 
-def test_run_fit_refuses_orbax_only_checkpoints(world, tmp_path):
-    jax_save_checkpoint(str(tmp_path), {"w": jnp.ones(3)}, 10)
-    argv = world["argv"] + ["--ckpt_dir", str(tmp_path)]
-    with pytest.raises(SystemExit, match="ROADMAP A3"):
+def test_run_fit_refuses_orbax_only_checkpoints(world, tmp_path, capsys):
+    import jax
+
+    from mofanerf_tpu.config import load_config as jax_load_config
+    from mofanerf_tpu.train.state import create_train_state as jax_create_train_state
+
+    jax_save_checkpoint(str(tmp_path / "other"), {"w": jnp.ones(3)}, 10)
+    argv = world["argv"] + ["--ckpt_dir", str(tmp_path / "other")]
+    with pytest.raises(ValueError, match="does not hold this model's state"):
         run_fit.main(argv)
+    jspec = jax_load_config(CONFIG).model_spec()
+    jax_save_checkpoint(str(tmp_path / "model"),
+                        jax_create_train_state(jax.random.PRNGKey(5), jspec), 20)
+    state = run_fit.main(world["argv"] + ["--ckpt_dir", str(tmp_path / "model"),
+                                          "--num_iterations", "1"])
+    assert "(step 20)" in capsys.readouterr().out and int(state.step) == 2
 
 
 def test_fit_config_defaults_are_the_references():

@@ -11,8 +11,9 @@ rays, f32).
   drawn from its key and injected (see tests/test_torch_train_state.py).
 - `train()` on the CPU writes args.txt, config.txt, the log, the `.pt`
   checkpoints, the held-out PNG and the orbit PNGs, and resumes.
-- Either data path refuses a directory of Orbax steps only, naming ROADMAP
-  A3 (the grid upkeep of `i_grid > 0` is tested in
+- Either data path resumes from a directory of the JAX package's Orbax
+  steps only (refused, naming ROADMAP A3, before the port read them; the
+  grid upkeep of `i_grid > 0` is tested in
   tests/test_torch_occupancy.py, the device-resident path in
   tests/test_torch_device_data.py)."""
 import os
@@ -166,13 +167,21 @@ def test_train_writes_its_outputs_and_resumes(tmp_path):
 @pytest.mark.parametrize("flag,item", [({"device_data": False}, "ROADMAP A3"),
                                        ({"device_data": True}, "ROADMAP A3")])
 def test_unported_options_raise_naming_the_roadmap_item(tmp_path, flag, item):
-    """What the loop does not read yet, on either data path: a checkpoint
-    directory of the JAX package's Orbax steps only (the device-resident
-    path, refused here until ROADMAP A5's port, now trains:
+    """A checkpoint directory of the JAX package's Orbax steps only, on either
+    data path: refused, naming `item`, until the port read Orbax steps; now
+    the loop resumes from the JAX step and goes on writing `.pt` (the
+    device-resident path, refused here until ROADMAP A5's port, trains too:
     tests/test_torch_device_data.py)."""
+    from mofanerf_tpu.train.checkpoint import save_checkpoint as jax_save_checkpoint
+
     d = tmp_path / "data"
     tfs.make_synthetic_dataset(str(d), n_ids=2, n_train=1, n_test=1, hw=16)
     cfg = tconfig.Config(**{**FLAGS, **flag, **_paths(d), "basedir": str(tmp_path)})
-    os.makedirs(tmp_path / cfg.expname / "checkpoints" / "000100")
-    with pytest.raises(FileNotFoundError, match=item):
-        tloop.train(cfg, n_iters=1, device="cpu")
+    ckpts = tmp_path / cfg.expname / "checkpoints"
+    jspec = jconfig.Config(**FLAGS, **_paths(d)).model_spec()
+    jax_state = jstate.create_train_state(jax.random.PRNGKey(3), jspec)
+    jax_save_checkpoint(str(ckpts), jax_state._replace(step=jnp.int32(100)), 100)
+    state = tloop.train(cfg, n_iters=101, device="cpu")
+    log = (tmp_path / cfg.expname / "train_log.txt").read_text()
+    assert int(state.step) == 101 and "resumed from checkpoint at step 100" in log
+    assert item not in log and "000101.pt" in os.listdir(ckpts)
