@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                 # all phases (needs one CUDA card)
     python3 chip_smoke.py --kernel-only   # build + kernel-vs-plain phases only
+    python3 chip_smoke.py --world 4       # build, then only the multi-card paths
+                                          # across 4 cards over NCCL (needs 4)
 
 Phases, each failing loudly:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
@@ -90,6 +92,22 @@ Phases, each failing loudly:
      resident split against estimate_device_bytes, a steady chunk's host
      synchronisations (none allowed), and the device-data step against the
      host-data step, back to back in turns.
+  11. multi-card (mofanerf_tpu_torch/parallel), on the one card: a world of
+     one rank over NCCL in this process (render_frame_sharded at 512x512,
+     64 + 64 samples, 64 field kernel launches, against render_frame;
+     render_path_serve(mesh=) of 4 views against the call without a mesh;
+     the full-width train_step(mesh=) and a two-step device-data chunk under
+     the mesh, bit for bit against the calls without, timed in turns with
+     the flat gradient buffer's all_reduce); `python -m
+     mofanerf_tpu_torch.parallel.dryrun 1` and its three lines; and a world of
+     two ranks sharing the card over gloo (NCCL takes one rank a card): on
+     mesh (data 2, model 1) the teacher frame (16 packets a rank) and the
+     serving path against this process's single-card calls, and a full-width
+     f32 data-parallel train step against the single-card step (loss within
+     1e-4 relative, params within 1e-5), with the host-staged gloo all_reduce
+     timed; on mesh (data 1, model 2), the fine field in model shards, the
+     teacher frame (its weights gathered once a frame) and the f32 train step
+     with the fine field tensor-parallel, against the same calls.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -2897,8 +2915,430 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
     return dict(ms=ms, bound_ms=bound_ms, peak=peak, enc_share=enc / busy)
 
 
+def multicard_inputs(dev):
+    """The multi-card phase's inputs, made here from seeds: the teacher phase's
+    full-width model (its alpha heads shaped on probe points) and conditioning,
+    the serving phase's bf16 4x128 student, a 1024-ray batch through random pixels
+    of the 512^2 view, and a fresh train state."""
+    import torch
+    from types import SimpleNamespace
+
+    from mofanerf_tpu_torch.config import Config
+    from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.ops.rays import get_rays_at, pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (encode_texture, exp_code_for,
+                                                    init_model_params, prepare_conditioning)
+    from mofanerf_tpu_torch.train import state as st
+
+    H = TEACHER_SIDE
+    spec = Config().model_spec()   # coarse 8x256 + fine 10x1024, bf16, 64 + 64 samples
+    K = np.array([[1200.0 * H / 512, 0, H / 2], [0, 1200.0 * H / 512, H / 2], [0, 0, 1]],
+                 np.float32)
+    c2w = pose_spherical(-25.0, -5.0, 16.0)[:3].astype(np.float32)
+    gen = torch.Generator().manual_seed(7)
+    params = init_model_params(gen, spec, device=dev)
+    uv = torch.rand((spec.uv_size, spec.uv_size, 3), generator=gen).to(dev)
+    shape_code = torch.randn(spec.shape_dim, generator=gen).to(dev)
+    with torch.no_grad():
+        tex = encode_texture(params, spec, uv)
+        cond = prepare_conditioning(params, spec, shape_code, exp_code_for(params, 3), tex)
+    probe_o, probe_d = kernel_rays(2048, 11, dev)
+    probe = probe_o[:, None, :] + probe_d[:, None, :] * torch.linspace(8.0, 26.0, 16, device=dev)[:, None]
+    for name, c in (("coarse", cond.coarse), ("fine", cond.fine)):
+        cfg = getattr(spec, name)
+        shape_density(params[name], cfg, c, fourier_embed(probe.reshape(-1, 3), cfg.multires))
+    scfg = StudentConfig(depth=D, width=W, multires=MR, compute_dtype=torch.bfloat16)
+    sparams = init_student_params(torch.Generator().manual_seed(1), scfg, device=dev)
+    sparams["sigma"]["b"] = sparams["sigma"]["b"] + 1.5
+    rng = np.random.default_rng(12)
+    coords = torch.from_numpy(rng.integers(0, H, (1024, 2)).astype(np.float32))
+    ro, rd = get_rays_at(coords, torch.from_numpy(K), torch.from_numpy(c2w))
+    target = torch.from_numpy(rng.uniform(0, 1, (1024, 3)).astype(np.float32))
+    batch = st.Batch(rays_o=ro.to(dev), rays_d=rd.to(dev), target_rgb=target.to(dev),
+                     shape_code=shape_code, exp_type=torch.tensor(3, device=dev), uv_map=uv)
+    return SimpleNamespace(
+        H=H, spec=spec, K=K, c2w=c2w, params=params, uv=uv, shape_code=shape_code, tex=tex,
+        cond=cond, scfg=scfg, sparams=sparams, rng=rng, batch=batch,
+        views=np.stack([pose_spherical(a, -5.0, 16.0) for a in (-30.0, -10.0, 10.0, 30.0)]),
+        serve_kw=dict(n_samples=S, packet_size=16384, hit_fraction=None),
+        state=st.create_train_state(torch.Generator().manual_seed(3), spec, device=dev),
+        tx=st.make_optimizer())
+
+
+def step_generator_on(dev, seed):
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def multicard_phase(failures, card, dev, step_ms, tmp):
+    """The multi-card layer on the one card: a world of one rank over NCCL in
+    this process (the sharded teacher frame, the sharded serving path, the
+    train step and a device-data chunk, each against its single-card call),
+    `parallel.dryrun 1` as a subprocess, and a world of two ranks sharing the
+    card over gloo (`world_check`)."""
+    import torch
+
+    from mofanerf_tpu_torch.data.device_data import DeviceDataset, DeviceSamplerConfig
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.parallel import make_mesh
+    from mofanerf_tpu_torch.parallel.collectives import all_reduce_mean
+    from mofanerf_tpu_torch.parallel.world import single_rank
+    from mofanerf_tpu_torch.render.renderer import render_frame, render_frame_sharded
+    from mofanerf_tpu_torch.render.serve import render_path_serve
+    from mofanerf_tpu_torch.train import state as st
+    from mofanerf_tpu_torch.train.loop import train_chunk_device_data
+    from mofanerf_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    x = multicard_inputs(dev)
+    H, spec, K, c2w, params, cond = x.H, x.spec, x.K, x.c2w, x.params, x.cond
+    state, batch, tx = x.state, x.batch, x.tx
+    torch.cuda.synchronize()
+    out = {}
+    # the texture encoder's convolutions: cuDNN's deterministic algorithms, so that two
+    # train steps from the same state can be held bit for bit
+    cudnn_flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with single_rank("cuda", os.path.join(REPO, "build")) as rdev:
+        mesh = make_mesh()
+        print(f"multi-card: world 1 over {torch.distributed.get_backend()} on {rdev}, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+
+        # ---- the sharded teacher frame: counts zeroed just before, read just after. That
+        # run makes the world's first NCCL collective (the communicator is built on it), so
+        # it is not timed: the two are timed after it, in turns (single, sharded, sharded,
+        # single: ~3.3 s a frame)
+        times = {"single": [], "sharded": []}
+
+        def frame(which):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = (render_frame(params, spec, cond, H, H, K, c2w) if which == "single" else
+                   render_frame_sharded(params, spec, cond, H, H, K, c2w, mesh))
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+            return got
+
+        fk.launch_count = 0
+        sharded = frame("sharded")
+        out["teacher_launches"] = fk.launch_count
+        times["sharded"].clear()
+        single = frame("single")
+        frame("sharded")
+        frame("sharded")
+        frame("single")
+        err = max(float((sharded[k] - single[k]).abs().max()) for k in single)
+        out["teacher_ms"] = {k: float(np.mean(v)) * 1e3 for k, v in times.items()}
+        print(f"multi-card: render_frame_sharded {H}x{H} (64 + 64 samples) max |diff| to "
+              f"render_frame {err:.3e} (tol 1e-6); field kernel launches "
+              f"{out['teacher_launches']} (expected 64); ms a frame in turns (the counted "
+              f"frame left out), means: sharded {out['teacher_ms']['sharded']:.2f} of "
+              f"{[round(t * 1e3, 1) for t in times['sharded']]}, render_frame "
+              f"{out['teacher_ms']['single']:.2f} of "
+              f"{[round(t * 1e3, 1) for t in times['single']]} on {card}", flush=True)
+        if not err <= 1e-6:
+            fail(failures, f"render_frame_sharded differs from render_frame by {err}")
+        if out["teacher_launches"] != 64:
+            fail(failures, f"sharded teacher frame: {out['teacher_launches']} field kernel "
+                           f"launches, expected 64")
+
+        # ---- the sharded serving path: counts zeroed just before, read just after
+        torch.cuda.synchronize()
+        sk.launch_count = 0
+        s_sharded = render_path_serve(x.sparams, x.scfg, None, x.views, H, H, K, mesh=mesh,
+                                      **x.serve_kw)
+        torch.cuda.synchronize()
+        out["serve_launches"] = sk.launch_count
+        sk.launch_count = 0
+        s_single = render_path_serve(x.sparams, x.scfg, None, x.views, H, H, K, **x.serve_kw)
+        torch.cuda.synchronize()
+        single_launches = sk.launch_count
+        err = max(float((s_sharded[k] - s_single[k]).abs().max()) for k in s_single)
+        print(f"multi-card: render_path_serve(mesh=) {len(x.views)} views {H}x{H} max |diff| "
+              f"to the call without a mesh {err:.3e} (tol 1e-6); serving kernel launches "
+              f"{out['serve_launches']} (the call without a mesh: {single_launches})",
+              flush=True)
+        if not err <= 1e-6 or out["serve_launches"] != single_launches or single_launches == 0:
+            fail(failures, f"sharded serving path: max |diff| {err}, launches "
+                           f"{out['serve_launches']} vs {single_launches}")
+
+        # ---- the train step: train_step(mesh=) against train_step, same state and draws
+        s_one, m_one = st.train_step(state, batch, step_generator_on(dev, 21), spec, tx)
+        s_mesh, m_mesh = st.train_step(state, batch, step_generator_on(dev, 21), spec, tx,
+                                       mesh=mesh)
+        same = (torch.equal(m_one["loss"], m_mesh["loss"])
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(s_one.params),
+                                                          tree_leaves(s_mesh.params))))
+        times = {"single": [], "mesh": []}
+        for which in ("single", "mesh", "mesh", "single", "single", "mesh", "mesh", "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st.train_step(state, batch, step_generator_on(dev, 22), spec, tx,
+                          mesh=mesh if which == "mesh" else None)
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        out["step_ms"] = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
+        leaves = tree_leaves(state.params)
+        out["grad_bytes"] = 4 * sum(t.numel() for t in leaves)
+        ar = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean(leaves, mesh)
+            torch.cuda.synchronize()
+            ar.append(time.perf_counter() - t0)
+        out["world1_all_reduce_ms"] = float(np.median(ar)) * 1e3
+        print(f"multi-card: train_step(mesh=) at world 1 bit-equal to train_step: {same} "
+              f"(loss {float(m_mesh['loss']):.6f}); ms a step in turns: mesh "
+              f"{out['step_ms']['mesh']:.2f}, without {out['step_ms']['single']:.2f} (the "
+              f"train-step timing's: {step_ms:.2f}); the flat gradient buffer "
+              f"{out['grad_bytes']} bytes, its all_reduce ({torch.distributed.get_backend()}, "
+              f"one rank) {out['world1_all_reduce_ms']:.3f} ms on {card}", flush=True)
+        if not same:
+            fail(failures, "train_step(mesh=) at world 1 differs from train_step")
+
+        # ---- a two-step device-data chunk under the mesh against the one without
+        n_frames, rng = 4, x.rng
+        store = DeviceDataset(
+            images=torch.from_numpy(rng.integers(0, 256, (n_frames, H, H, 3),
+                                                 dtype=np.uint8)).to(dev),
+            poses=torch.from_numpy(x.views.astype(np.float32)).to(dev),
+            shape_codes=torch.from_numpy(rng.standard_normal((n_frames, spec.shape_dim))
+                                         .astype(np.float32)).to(dev),
+            exp_types=torch.arange(n_frames, dtype=torch.int32, device=dev),
+            uv_maps=x.uv[None],
+            uv_index=torch.zeros(n_frames, dtype=torch.int32, device=dev),
+            lm2d=torch.from_numpy(rng.uniform(H / 4, 3 * H / 4, (n_frames, 68, 2))
+                                  .astype(np.float32)).to(dev),
+            fg_pixels=torch.zeros((n_frames, 16, 2), dtype=torch.int32, device=dev))
+        dscfg = DeviceSamplerConfig(n_rand=1024, H=H, W=H, precrop_iters=0, precrop_frac=0.5,
+                                    lm_frac=0.5, lm_frac_anneal_iters=0, bias="landmarks")
+        Kt = torch.from_numpy(K).to(dev)
+        c_one, cm_one = train_chunk_device_data(state, store, Kt, 0, 2, dscfg, spec, tx, 5)
+        c_mesh, cm_mesh = train_chunk_device_data(state, store, Kt, 0, 2, dscfg, spec, tx, 5,
+                                                  mesh=mesh)
+        same = (int(c_mesh.step) == 2 and torch.equal(cm_one["loss"], cm_mesh["loss"])
+                and all(torch.equal(a, b) for a, b in zip(tree_leaves(c_one.params),
+                                                          tree_leaves(c_mesh.params))))
+        print(f"multi-card: 2-step device-data chunk under the mesh bit-equal to the chunk "
+              f"without: {same} (loss {float(cm_mesh['loss']):.6f})", flush=True)
+        if not same:
+            fail(failures, "the device-data chunk under the mesh differs from the one without")
+        del c_one, c_mesh, s_one, s_mesh
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn_flags
+
+    out["dryrun_s"] = run_dryrun(failures, 1)
+    out["world2"] = world_check(failures, card, dev, x, 2, "gloo", tmp,
+                                refs=(single, s_single))
+    print(f"multi-card: the phase in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def run_dryrun(failures, n):
+    """`python -m mofanerf_tpu_torch.parallel.dryrun n` (NCCL, a card a rank) and its
+    three lines; returns its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mofanerf_tpu_torch.parallel.dryrun", str(n),
+                           "--timeout", "240"], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip")]
+    for ln in lines:
+        print(f"multi-card: {ln}", flush=True)
+    sec = time.perf_counter() - t0
+    print(f"multi-card: parallel.dryrun {n} in {sec:.1f} s", flush=True)
+    if proc.returncode != 0 or len(lines) != 3:
+        fail(failures, f"parallel.dryrun {n}: rc {proc.returncode}, {len(lines)} lines; "
+                       f"{proc.stderr[-2000:]}")
+    return sec
+
+
+def world_check(failures, card, dev, x, n, backend, tmp, refs=None, timed=0):
+    """A world of n ranks (parallel/world.py): on mesh (data n, model 1) the
+    teacher frame, the serving path and a full-width f32 data-parallel train
+    step (256 rays); on mesh (data n/2, model 2), with the fine field in model
+    shards, the teacher frame (the shards gathered once a frame) and the same
+    train step with the fine field tensor-parallel. Each rank's result is held
+    against the single-card call made here (`refs`: the frame and the serving
+    maps, when already made). The train step in f32: in bf16 each rank's
+    weight gradient (each model rank's partial input gradient) is rounded to
+    bf16 before the sum, in another order than one card's (~4e-3 relative),
+    which no 1e-5 bound holds. With `timed`, the ranks time that many more
+    frames and bf16 steps of the whole 1024-ray batch on (data n, model 1),
+    and so does this process on one card first."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.parallel import dryrun
+    from mofanerf_tpu_torch.parallel.world import run_world
+    from mofanerf_tpu_torch.render.renderer import render_frame
+    from mofanerf_tpu_torch.render.serve import render_path_serve
+    from mofanerf_tpu_torch.train import state as st
+    from mofanerf_tpu_torch.utils.tree import tree_leaves
+
+    H, spec, state = x.H, x.spec, x.state
+    spec32 = dataclasses.replace(
+        spec, coarse=dataclasses.replace(spec.coarse, compute_dtype=torch.float32),
+        fine=dataclasses.replace(spec.fine, compute_dtype=torch.float32))
+    if refs is None:
+        refs = (render_frame(x.params, spec, x.cond, H, H, x.K, x.c2w),
+                render_path_serve(x.sparams, x.scfg, None, x.views, H, H, x.K, **x.serve_kw))
+    single, s_single = ({k: v.cpu() for k, v in r.items()} for r in refs)
+    n_train = 256
+    b32 = x.batch._replace(rays_o=x.batch.rays_o[:n_train], rays_d=x.batch.rays_d[:n_train],
+                           target_rgb=x.batch.target_rgb[:n_train])
+    ref_loss, _, ref_grads = st.batch_grads(state.params, b32, step_generator_on(dev, 31),
+                                            spec32)
+    ref_state, _ = st.train_step(state, b32, step_generator_on(dev, 31), spec32, x.tx)
+    ref_params = [t.cpu() for t in tree_leaves(ref_state.params)]
+    ref_grads = [g.cpu() for g in ref_grads]
+    del ref_state
+    one_card = {}
+    if timed:
+        def median_s(fn):
+            fn()
+            ts = []
+            for _ in range(timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            return float(np.median(ts))
+
+        one_card = {"frame_s": median_s(lambda: render_frame(x.params, spec, x.cond, H, H,
+                                                             x.K, x.c2w)),
+                    "step_s": median_s(lambda: st.train_step(
+                        state, x.batch, step_generator_on(dev, 41), spec, x.tx))}
+
+    def cpu(tree):
+        return map_tree(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t, tree)
+
+    cpu_state = st.TrainState(cpu(state.params), st.AdamState(
+        state.opt_state.count.cpu(), cpu(state.opt_state.mu), cpu(state.opt_state.nu)),
+        state.step.cpu())
+    payload = {
+        "mesh": (n, 1),
+        "teacher": dict(spec=spec, params=cpu(x.params), shape=x.shape_code.cpu(), exp=3,
+                        tex=x.tex.cpu(), H=H, W=H, K=x.K, c2w=x.c2w, timed=timed),
+        "serve": dict(params=cpu(x.sparams), cfg=x.scfg, poses=x.views, H=H, W=H, K=x.K,
+                      kw=x.serve_kw),
+        "train": dict(spec=spec32, state=cpu_state, batches=[cpu(b32._asdict())],
+                      draws=[None], seed=31),
+    }
+    # the data ranks of each part's mesh: (data n, model 1), and (data n/2, model 2)
+    # with the fine field in model shards
+    n_data = {"teacher": n, "train": n}
+    if n % 2 == 0:
+        payload["teacher:tp"] = dict(payload["teacher"], mesh=(n // 2, 2), shard=True, timed=0)
+        payload["train:tp"] = dict(payload["train"], mesh=(n // 2, 2), shard=True)
+        n_data.update({"teacher:tp": n // 2, "train:tp": n // 2})
+    if timed:
+        payload["train:bf16"] = dict(spec=spec, state=cpu_state,
+                                     batches=[cpu(x.batch._asdict())], draws=[None], seed=41,
+                                     timed=timed)
+    path = os.path.join(tmp, f"world{n}_payload.pt")
+    torch.save(payload, path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = run_world(dryrun.sharded_paths, n, path, workdir=tmp, device="cuda",
+                      backend=backend, timeout_s=300.0)
+    world_s = time.perf_counter() - t0
+    res = {}
+    for r, got in enumerate(ranks):
+        s_err = max(float((got["serve"]["maps"][k] - s_single[k]).abs().max())
+                    for k in s_single)
+        print(f"multi-card: world {n} over {backend}, rank {r}: render_path_serve(mesh=) on "
+              f"(data {n}, model 1) max |diff| to the call without a mesh {s_err:.3e} "
+              f"(tol 1e-6), {got['serve']['launches']} serving kernel launches", flush=True)
+        if not (s_err <= 1e-6 and got["serve"]["launches"] > 0):
+            fail(failures, f"world {n} rank {r}: serve {s_err} "
+                           f"({got['serve']['launches']} launches)")
+        for key in [k for k in n_data if k.startswith("teacher")]:
+            te, m = got[key], f"(data {n_data[key]}, model {n // n_data[key]})"
+            t_err = max(float((te["maps"][k] - single[k]).abs().max()) for k in single)
+            want = 2 * -(-H * H // (spec.render.packet_size * n_data[key]))
+            print(f"multi-card: world {n} rank {r}: render_frame_sharded {H}x{H} on {m}"
+                  f"{', model shards gathered' if key.endswith('tp') else ''} max |diff| to "
+                  f"render_frame {t_err:.3e} (tol 1e-6), {te['launches']} field kernel "
+                  f"launches (expected {want})", flush=True)
+            if not (t_err <= 1e-6 and te["launches"] == want):
+                fail(failures, f"world {n} rank {r} {key}: teacher {t_err} "
+                               f"({te['launches']} launches)")
+            res[f"{key}_max_diff"] = t_err
+        for key in [k for k in n_data if k.startswith("train")]:
+            tr_, m = got[key], f"(data {n_data[key]}, model {n // n_data[key]})"
+            loss_rel = abs(float(tr_["loss"][0]) - float(ref_loss)) / abs(float(ref_loss))
+            got_params = tree_leaves(tr_["params"])
+            got_grads = tree_leaves(tr_["grads0"])
+            p_err = max(float((a - b).abs().max()) for a, b in zip(got_params, ref_params))
+            g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(got_grads, ref_grads))
+            # the params' bound: where it fails, it may only be where Adam's first update
+            # (~ lr * sign(g)) met a gradient too small for its sign to survive the order of
+            # the sums; then the reduced gradients themselves are held
+            flips = [(a - b).abs() > 1e-5 for a, b in zip(got_params, ref_params)]
+            tiny = all(bool((g[f].abs() < 1e-7).all()) for g, f in zip(ref_grads, flips))
+            n_flip = sum(int(f.sum()) for f in flips)
+            print(f"multi-card: world {n} rank {r}: f32 train step on {m}"
+                  f"{', fine field tensor-parallel' if key.endswith('tp') else ''}, "
+                  f"{n_train // n_data[key]} of {n_train} rays a rank: loss rel diff "
+                  f"{loss_rel:.2e} (tol 1e-4), params max |diff| {p_err:.2e} (tol 1e-5; "
+                  f"{n_flip} elements over it, all with |g| < 1e-7: {tiny}), every leaf's "
+                  f"reduced gradient max rel diff {g_rel:.2e} (tol 1e-5); the gradient buffer "
+                  f"({tr_['all_reduce_bytes']} bytes) all_reduce over data "
+                  f"{tr_['all_reduce_sec'] * 1e3:.2f} ms", flush=True)
+            if not loss_rel <= 1e-4 or not (p_err < 1e-5 or (tiny and g_rel <= 1e-5)):
+                fail(failures, f"world {n} rank {r} {key}: train step loss {loss_rel}, params "
+                               f"{p_err}, grads {g_rel}")
+            res[f"{key}_params_max_diff"], res[f"{key}_grads_max_rel"] = p_err, g_rel
+        res.update(all_reduce_ms=got["train"]["all_reduce_sec"] * 1e3,
+                   all_reduce_bytes=got["train"]["all_reduce_bytes"])
+        if timed:
+            bf = got["train:bf16"]
+            res.update(frame_s=got["teacher"]["sec"], step_s=bf["step_sec"])
+            print(f"multi-card: world {n} rank {r}: a 512^2 teacher frame {res['frame_s']:.4f} s "
+                  f"(one card: {one_card['frame_s']:.4f} s, {one_card['frame_s'] / res['frame_s']:.2f}x); "
+                  f"a bf16 train step of 1024 rays, {1024 // n} a rank, {res['step_s'] * 1e3:.2f} ms "
+                  f"(one card: {one_card['step_s'] * 1e3:.2f} ms) on {card}", flush=True)
+    print(f"multi-card: world {n} ran in {world_s:.1f} s (spawn, CUDA contexts, payload "
+          f"included)", flush=True)
+    return dict(res, **({"one_card": one_card} if timed else {}))
+
+
+def world_main(n, card, dev) -> int:
+    """`--world N`: the multi-card paths across N cards over NCCL, a card a rank:
+    `parallel.dryrun N`, then `world_check` with each rank's frame and step timed
+    against one card's."""
+    import torch
+
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke: --world {n} needs {n} cards, this machine has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    failures: list = []
+    t0 = time.perf_counter()
+    x = multicard_inputs(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        dry = run_dryrun(failures, n)
+        res = world_check(failures, card, dev, x, n, "nccl", tmp, timed=5)
+    print(f"multi-card across {n} cards: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"multi_card_world": dict(res, world=n, dryrun_s=dry, card=card)}),
+          flush=True)
+    if failures:
+        print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     kernel_only = "--kernel-only" in argv
+    world = int(argv[argv.index("--world") + 1]) if "--world" in argv else None
     import torch
 
     if not torch.cuda.is_available():
@@ -2942,6 +3382,8 @@ def main(argv) -> int:
         if n_hgmma == 0:
             fail(failures, f"the {name} library holds no HGMMA instruction")
     dev = torch.device("cuda")
+    if world:
+        return 1 if failures else world_main(world, card, dev)
     t0 = time.perf_counter()
     rows = kernel_phase(failures, dev)
     print(f"kernel phase (serving kernel): {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2990,6 +3432,10 @@ def main(argv) -> int:
         print(f"path phase (device-resident training data): {time.perf_counter() - t0:.1f} s",
               flush=True)
         t0 = time.perf_counter()
+        multi = multicard_phase(failures, card, dev, step["ms"], work)
+        print(f"path phase (multi-card: world 1 over NCCL, parallel.dryrun 1, world 2 over "
+              f"gloo on one card): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
         datagen, wild = wild_phase(failures, card, dev, render_flags, work)
         print(f"path phase (data generation, wild-photo preprocessing, run_fit): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3000,6 +3446,7 @@ def main(argv) -> int:
     print(json.dumps({"train_device_data": dict(dd, card=card)}), flush=True)
     print(json.dumps({"datagen": datagen}), flush=True)
     print(json.dumps({"preprocess": wild}), flush=True)
+    print(json.dumps({"multi_card": dict(multi, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -3016,7 +3463,8 @@ def main(argv) -> int:
                       "refine_corpus": refined["launches"]["refine_corpus"] // 2,
                       "train_device_data": dd["launches"] // 2,
                       "wild_fit": wild["launches"] // 2,
-                      "convert": converted["launches"] // 2}
+                      "convert": converted["launches"] // 2,
+                      "sharded_teacher": multi["teacher_launches"] // 2}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
                        ("--distill", "--distill_cond", "--distill_avatars")),
@@ -3024,7 +3472,8 @@ def main(argv) -> int:
         + fit_launched["export_grids' grid through render_frame_fast"]
         + refined["launches"]["refine_corpus --fast"]}
     serve_by_path = {"serving": launches,
-                     "distill": sum(v["serve"] for v in launched.values())}
+                     "distill": sum(v["serve"] for v in launched.values()),
+                     "sharded_serve": multi["serve_launches"]}
     field_entries = []
     for name, (depth, width, _) in FIELDS.items():
         row = field_rows[(name, "bfloat16")]   # the dtype the teacher path runs

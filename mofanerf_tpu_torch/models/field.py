@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from mofanerf_tpu_torch.ops.embed import embed_dim, fourier_embed
+from mofanerf_tpu_torch.parallel.collectives import ModelAxis, copy_to_model, gather_from_model
 from mofanerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -162,10 +163,16 @@ def fold_conditioning(
     shape_code: torch.Tensor,  # [shape_dim]
     exp_code: torch.Tensor,    # [exp_dim] (already ISM-modulated)
     tex_code: torch.Tensor,    # [tex_dim]
+    tp: ModelAxis | None = None,
 ) -> Params:
     """The codes' contributions to every code-consuming layer, as per-frame
     bias vectors. Differentiable with respect to the codes, so fitting by
-    gradient flows through the fold."""
+    gradient flows through the fold. With `tp` (`column_axis`) the weights
+    are this rank's column blocks and so are the biases; the codes' gradients
+    are summed over the model axis."""
+    if tp is not None:
+        shape_code, exp_code, tex_code = (copy_to_model(c, tp)
+                                          for c in (shape_code, exp_code, tex_code))
     x, s, r = params["xyz"], params["sigma"], params["rgb"]
     return {
         "xyz_b": x["b"] + exp_code @ x["w_exp"],
@@ -176,26 +183,41 @@ def fold_conditioning(
     }
 
 
-def _trunk_apply(t: Params, feat_in, b0, bskip, dtype):
+def column_axis(w: torch.Tensor, width: int, tp: ModelAxis | None) -> ModelAxis | None:
+    """`tp` when the weight `w` of a layer with `width` output columns holds
+    this rank's column block (parallel/mesh.py::shard_params_rules), else
+    None: the layer then runs whole."""
+    return None if tp is None or w.shape[-1] == width else tp
+
+
+def _layer(pairs, b, dt, tp: ModelAxis | None = None):
+    """sum(x @ w for x, w in pairs) + b in the compute dtype. Under `tp` each
+    w is this rank's column block: the inputs enter through copy_to_model and
+    the output block is gathered over the model axis."""
+    y = None
+    for x, w in pairs:
+        p = (x if tp is None else copy_to_model(x, tp)) @ w.to(dt)
+        y = p if y is None else y + p
+    y = y + b.to(dt)
+    return y if tp is None else gather_from_model(y, tp)
+
+
+def _trunk_apply(t: Params, feat_in, b0, bskip, dtype, tp: ModelAxis | None = None):
     """Run a skip trunk on per-point features with folded code biases."""
-    h = F.relu(feat_in @ t["w_feat0"].to(dtype) + b0.to(dtype))
+    h = F.relu(_layer([(feat_in, t["w_feat0"])], b0, dtype, tp))
     for layer in t["mid"]:
-        h = F.relu(h @ layer["w"].to(dtype) + layer["b"].to(dtype))
-    h = F.relu(
-        feat_in @ t["w_skip_feat"].to(dtype)
-        + h @ t["w_skip_h"].to(dtype)
-        + bskip.to(dtype)
-    )
+        h = F.relu(_layer([(h, layer["w"])], layer["b"], dtype, tp))
+    h = F.relu(_layer([(feat_in, t["w_skip_feat"]), (h, t["w_skip_h"])], bskip, dtype, tp))
     for layer in t["post"]:
-        h = F.relu(h @ layer["w"].to(dtype) + layer["b"].to(dtype))
+        h = F.relu(_layer([(h, layer["w"])], layer["b"], dtype, tp))
     return h
 
 
-def _xyz_apply(params: Params, cond: Params, pts_embed, dt):
+def _xyz_apply(params: Params, cond: Params, pts_embed, dt, tp: ModelAxis | None = None):
     xyz = params["xyz"]
-    h = F.relu(pts_embed.to(dt) @ xyz["w_pts"].to(dt) + cond["xyz_b"].to(dt))
+    h = F.relu(_layer([(pts_embed.to(dt), xyz["w_pts"])], cond["xyz_b"], dt, tp))
     for layer in xyz["layers"]:
-        h = F.relu(h @ layer["w"].to(dt) + layer["b"].to(dt))
+        h = F.relu(_layer([(h, layer["w"])], layer["b"], dt, tp))
     return h
 
 
@@ -206,21 +228,31 @@ def apply_field_folded(
     dir_feat: torch.Tensor,    # [N, W//2], or [R, W//2] with N = R*S
     cfg: FieldConfig,
     samples_per_ray: int | None = None,
+    tp: ModelAxis | None = None,
 ):
     """Embedded points -> (raw_rgb [N,3], raw_sigma [N,1]) in the compute
     dtype. `dir_feat` is `dirs_embed @ view.w_dirs`; with `samples_per_ray`
-    it is per ray and broadcast over each ray's samples at the view layer."""
+    it is per ray and broadcast over each ray's samples at the view layer.
+
+    With the model axis `tp`, the layers that shard_params_rules splits
+    (xyz encoder, trunks, the view layer; `dir_feat` then holds the rank's
+    columns of the view layer) run column-parallel, each output gathered;
+    the heads alpha and view.rgb run whole on the gathered features."""
     dt = cfg.compute_dtype
-    xyz_code = _xyz_apply(params, cond, pts_embed, dt)
+    trunk_tp = column_axis(params["sigma"]["w_feat0"], cfg.width, tp)
+    xyz_code = _xyz_apply(params, cond, pts_embed, dt, trunk_tp)
 
     s = params["sigma"]
-    sigma_feat = _trunk_apply(s, xyz_code, cond["sigma_b0"], cond["sigma_bskip"], dt)
+    sigma_feat = _trunk_apply(s, xyz_code, cond["sigma_b0"], cond["sigma_bskip"], dt, trunk_tp)
     raw_sigma = sigma_feat @ s["alpha"]["w"].to(dt) + s["alpha"]["b"].to(dt)
 
-    rgb_feat = _trunk_apply(params["rgb"], sigma_feat, cond["rgb_b0"], cond["rgb_bskip"], dt)
+    rgb_feat = _trunk_apply(params["rgb"], sigma_feat, cond["rgb_b0"], cond["rgb_bskip"], dt,
+                            trunk_tp)
 
     v = params["view"]
-    pre_view = rgb_feat @ v["w_feat"].to(dt) + v["b"].to(dt)
+    view_tp = column_axis(v["w_feat"], cfg.width // 2, tp)
+    x = rgb_feat if view_tp is None else copy_to_model(rgb_feat, view_tp)
+    pre_view = x @ v["w_feat"].to(dt) + v["b"].to(dt)
     if samples_per_ray is not None:
         n_rays = dir_feat.shape[0]
         w2 = pre_view.shape[-1]
@@ -228,6 +260,8 @@ def apply_field_folded(
         view_feat = F.relu(pre_view + dir_feat.to(dt)[:, None, :]).reshape(-1, w2)
     else:
         view_feat = F.relu(pre_view + dir_feat.to(dt))
+    if view_tp is not None:
+        view_feat = gather_from_model(view_feat, view_tp)
     raw_rgb = view_feat @ v["rgb"]["w"].to(dt) + v["rgb"]["b"].to(dt)
     return raw_rgb, raw_sigma
 

@@ -29,7 +29,7 @@ def bucket_fraction(frac: float, buckets=HIT_BUDGET_BUCKETS) -> float:
     return 1.0
 
 
-def _compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction):
+def compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction):
     """Order face-hitting rays first and keep a whole-packets budget.
     Returns (ro, rd, sel, n_eval); sel is None when no compaction applied."""
     n = ro_flat.shape[0]
@@ -52,7 +52,7 @@ def _compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fracti
 _BG_FILL = {"rgb": None, "disp": 1e10, "acc": 0.0, "depth": 0.0}
 
 
-def _scatter_background(maps, sel, n, n_eval, white_bkgd):
+def scatter_background(maps, sel, n, n_eval, white_bkgd):
     """Unpad packet outputs and scatter compacted rays back over analytic
     background values (composite()'s outputs for an all-empty ray)."""
     out = {}
@@ -97,7 +97,7 @@ def sweep_rays(
     n = ro_flat.shape[0]
     p = min(packet_size, n)
     p = -(-p // packet_multiple) * packet_multiple
-    ro_flat, rd_flat, sel, n_eval = _compact_rays(
+    ro_flat, rd_flat, sel, n_eval = compact_rays(
         ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction
     )
 
@@ -110,7 +110,7 @@ def sweep_rays(
         t.reshape((-1, p) + t.shape[1:]) for t in prepare(ro.reshape(-1, 3), rd.reshape(-1, 3)))
     outs = [ray_fn(ro[i], rd[i], *(t[i] for t in extras)) for i in range(ro.shape[0])]
     maps = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-    return _scatter_background(maps, sel, n, n_eval, white_bkgd)
+    return scatter_background(maps, sel, n, n_eval, white_bkgd)
 
 
 def sweep_frame(

@@ -20,6 +20,10 @@ Training asks for the other route explicitly (`render_rays(autograd=True)`):
 both fields run `models/field.py::apply_field_folded`, plain differentiable
 tensor code in the compute dtype, as the JAX train step differentiates its
 XLA field and not the Pallas kernel. Inference keeps the kernel.
+
+`render_frame_sharded` splits a frame's rays over a mesh's `data` axis
+(parallel/mesh.py): each rank sweeps its block through the kernel and every
+rank gets the whole frame.
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
-from mofanerf_tpu_torch.models.field import (FieldConfig, apply_field_folded, fold_conditioning,
-                                             init_field_params)
+from mofanerf_tpu_torch.models.field import (FieldConfig, apply_field_folded, column_axis,
+                                             fold_conditioning, init_field_params)
 from mofanerf_tpu_torch.models.ism import init_ism_params, modulate_expression
 from mofanerf_tpu_torch.models.tex_encoder import TextureEncoder, init_tex_encoder_params
 from mofanerf_tpu_torch.ops.composite import composite
@@ -39,6 +43,9 @@ from mofanerf_tpu_torch.ops.embed import fourier_embed
 from mofanerf_tpu_torch.ops.field_kernel import FusedParams, fused_field_apply, pack_fused_params
 from mofanerf_tpu_torch.ops.rays import get_rays
 from mofanerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
+from mofanerf_tpu_torch.parallel.collectives import (ModelAxis, data_rows, gather_blocks, pad_rows,
+                                                     padded_len)
+from mofanerf_tpu_torch.parallel.mesh import axis_size, gather_params
 from mofanerf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -128,13 +135,17 @@ def prepare_conditioning(
     shape_code: torch.Tensor,   # [shape_dim]
     exp_code: torch.Tensor,     # [exp_dim] raw latent (pre-ISM)
     tex_code: torch.Tensor,     # [tex_dim]
+    tp: ModelAxis | None = None,
 ) -> FrameCond:
     """ISM-modulate the expression latent and fold all codes into per-layer
-    biases for both fields. Differentiable with respect to all three codes."""
+    biases for both fields. Differentiable with respect to all three codes.
+    With the model axis `tp` and the fine field's layers in column blocks
+    (parallel/mesh.py::shard_params), the fine biases are this rank's blocks."""
     exp_mod = modulate_expression(params["ism"], shape_code, exp_code)
+    fine_tp = column_axis(params["fine"]["sigma"]["w_feat0"], spec.fine.width, tp)
     return FrameCond(
         coarse=fold_conditioning(params["coarse"], shape_code, exp_mod, tex_code),
-        fine=fold_conditioning(params["fine"], shape_code, exp_mod, tex_code),
+        fine=fold_conditioning(params["fine"], shape_code, exp_mod, tex_code, fine_tp),
     )
 
 
@@ -172,13 +183,42 @@ def _run_field(fused: FusedParams, cfg: FieldConfig, pts, dir_feat_ray, n_sample
 
 
 def _run_field_autograd(field_params: Params, cfg: FieldConfig, cond: Params, pts,
-                        dir_feat_ray, n_samples):
+                        dir_feat_ray, n_samples, tp: ModelAxis | None = None):
     """The differentiable route: apply_field_folded, outputs in the compute dtype."""
     n_rays = pts.shape[0]
     pe = fourier_embed(pts.reshape(-1, 3), cfg.multires)
     raw_rgb, raw_sigma = apply_field_folded(field_params, cond, pe, dir_feat_ray, cfg,
-                                            samples_per_ray=n_samples)
+                                            samples_per_ray=n_samples, tp=tp)
     return raw_rgb.reshape(n_rays, n_samples, 3), raw_sigma.reshape(n_rays, n_samples)
+
+
+def train_draws(generator: torch.Generator, spec: MoFaNeRF, n: int, device,
+                draws: Dict[str, torch.Tensor] | None = None) -> Dict[str, torch.Tensor]:
+    """The random numbers of render_rays(train=True) for n rays: `draws`,
+    and those missing drawn from `generator` (on its device) in this order:
+    "strat" U(0,1) [n, n_coarse] when perturb > 0, "noise_c" N(0,1)
+    [n, n_coarse] when raw_noise_std > 0, then with importance samples "pdf"
+    U(0,1) [n, n_importance] and "noise_f" N(0,1) [n, fine samples] under
+    the same conditions. render_rays draws through this function, so the
+    train step under a mesh, which draws a whole batch's numbers here and
+    cuts them by rank, trains on the numbers one card would."""
+    rc = spec.render
+    n_fine = rc.n_importance + (rc.n_coarse if rc.fine_on_union else 0)
+    wanted = []
+    if rc.perturb > 0.0:
+        wanted.append(("strat", torch.rand, rc.n_coarse))
+    if rc.raw_noise_std > 0.0:
+        wanted.append(("noise_c", torch.randn, rc.n_coarse))
+    if rc.n_importance > 0 and rc.perturb > 0.0:
+        wanted.append(("pdf", torch.rand, rc.n_importance))
+    if rc.n_importance > 0 and rc.raw_noise_std > 0.0:
+        wanted.append(("noise_f", torch.randn, n_fine))
+    out = dict(draws or {})
+    for name, draw, k in wanted:
+        if name not in out:
+            out[name] = draw((n, k), generator=generator, dtype=torch.float32,
+                             device=generator.device).to(device)
+    return out
 
 
 def render_rays(
@@ -192,24 +232,26 @@ def render_rays(
     draws: Dict[str, torch.Tensor] | None = None,
     pack: FramePack | None = None,
     autograd: bool = False,
+    tp: ModelAxis | None = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a packet of rays. Deterministic when train=False (perturb=0,
     det importance sampling). With train=True the random numbers are injected
     through `draws` ({"strat": U(0,1) [N, n_coarse], "pdf": U(0,1)
     [N, n_importance], "noise_c"/"noise_f": N(0,1) [N, samples]}), and any
-    that is missing is drawn from `generator`.
+    that is missing is drawn from `generator` (`train_draws`).
 
     `pack` holds the kernel's operands for `cond`; frames pass it so that
     the weights are cast once, not once a packet. `autograd=True` runs both
     fields through apply_field_folded instead of the kernel, so that the
-    render can be differentiated (the train step's route)."""
+    render can be differentiated (the train step's route); there the model
+    axis `tp` runs a field whose layers are column blocks tensor-parallel."""
     rc = spec.render
     n = rays_o.shape[0]
     dev = rays_o.device
     if autograd:
         def field(name, pts, dirf, n_samples):
             return _run_field_autograd(params[name], getattr(spec, name), getattr(cond, name),
-                                       pts, dirf, n_samples)
+                                       pts, dirf, n_samples, tp)
     else:
         if pack is None:
             pack = pack_frame(params, spec, cond)
@@ -224,29 +266,28 @@ def render_rays(
 
     perturb = rc.perturb if train else 0.0
     noise_std = rc.raw_noise_std if train else 0.0
+    if train and generator is not None:
+        draws = train_draws(generator, spec, n, dev, draws)
     draws = draws or {}
 
-    def normal(name, n_samples):
+    def normal(name):
         if noise_std <= 0.0:
             return None
-        if name in draws:
-            return draws[name]
-        if generator is None:
+        if name not in draws:
             raise ValueError("sigma noise requires injected draws or a torch.Generator")
-        return torch.randn((n, n_samples), generator=generator, dtype=torch.float32,
-                           device=generator.device).to(dev)
+        return draws[name]
 
     near = torch.full((n, 1), rc.near, dtype=torch.float32, device=dev)
     far = torch.full((n, 1), rc.far, dtype=torch.float32, device=dev)
     z_vals = stratified_z_vals(draws.get("strat"), near, far, rc.n_coarse, perturb,
-                               rc.lindisp, generator=generator)
+                               rc.lindisp)
 
     # --- coarse pass
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     dirf_c = de @ params["coarse"]["view"]["w_dirs"]
     raw_rgb, raw_sigma = field("coarse", pts, dirf_c, rc.n_coarse)
     c = composite(raw_rgb, raw_sigma, z_vals, rays_d, noise_std, rc.white_bkgd,
-                  normal("noise_c", rc.n_coarse), rc.sigma_activation)
+                  normal("noise_c"), rc.sigma_activation)
 
     out = {}
     if rc.n_importance > 0:
@@ -255,7 +296,7 @@ def render_rays(
         # --- importance resample (the weights' end points dropped)
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(draws.get("pdf"), z_mid, c.weights[..., 1:-1], rc.n_importance,
-                               det=(perturb == 0.0), generator=generator)
+                               det=(perturb == 0.0))
         if rc.fine_on_union:
             z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
         else:
@@ -267,7 +308,7 @@ def render_rays(
         dirf_f = de_fine @ params["fine"]["view"]["w_dirs"]
         f_rgb, f_sigma = field("fine", pts, dirf_f, n_fine)
         cf = composite(f_rgb, f_sigma, z_all, rays_d, noise_std, rc.white_bkgd,
-                       normal("noise_f", n_fine), rc.sigma_activation)
+                       normal("noise_f"), rc.sigma_activation)
         out["rgb"], out["disp"], out["acc"] = cf.rgb, cf.disp, cf.acc
         out["depth"] = cf.depth
         out["z_std"] = torch.std(z_samples, dim=-1, unbiased=False)
@@ -279,6 +320,25 @@ def render_rays(
 
 def _params_device(params: Params) -> torch.device:
     return params["exp_codes"].device
+
+
+def _sweep(params: Params, spec: MoFaNeRF, cond: FrameCond, pack: FramePack, H: int, W: int,
+           K, c2w, p: int, n_total: int, mesh=None) -> Dict[str, torch.Tensor]:
+    """A frame's rays padded with rays of ones to n_total (under `mesh`: cut
+    to this data rank's block) and rendered packet by packet, p rays each;
+    the maps flat."""
+    dev = _params_device(params)
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
+    rays = (pad_rows(r.reshape(-1, 3), n_total) for r in get_rays(H, W, K, c2w))
+    ro, rd = (r if mesh is None else data_rows(r, mesh) for r in rays)
+    maps = [render_rays(params, spec, cond, o, d, train=False, pack=pack)
+            for o, d in zip(ro.reshape(-1, p, 3), rd.reshape(-1, p, 3))]
+    return {k: torch.cat([m[k] for m in maps]) for k in maps[0]}
+
+
+def _frame_maps(flat: Dict[str, torch.Tensor], H: int, W: int) -> Dict[str, torch.Tensor]:
+    return {k: v[:H * W].reshape((H, W) + v.shape[1:]) for k, v in flat.items()}
 
 
 def render_frame(
@@ -296,33 +356,55 @@ def render_frame(
     multiple of `packet_size` and swept packet by packet; the kernel's
     operands are packed once, before the sweep. Returns maps reshaped to
     [H, W, ...]. No autograd graph is built."""
-    dev = _params_device(params)
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
     with torch.no_grad():
         if pack is None:
             pack = pack_frame(params, spec, cond)
-        rays_o, rays_d = get_rays(H, W, K, c2w)
-        n = H * W
-        p = min(spec.render.packet_size, n)
-        n_pad = (-n) % p
-        ones = torch.ones((n_pad, 3), dtype=torch.float32, device=dev)
-        ro = torch.cat([rays_o.reshape(-1, 3), ones]).reshape(-1, p, 3)
-        rd = torch.cat([rays_d.reshape(-1, 3), ones]).reshape(-1, p, 3)
-        maps = [render_rays(params, spec, cond, o, d, train=False, pack=pack)
-                for o, d in zip(ro, rd)]
-    out = {}
-    for k in maps[0]:
-        flat = torch.cat([m[k] for m in maps])[:n]
-        out[k] = flat.reshape((H, W) + flat.shape[1:])
-    return out
+        p = min(spec.render.packet_size, H * W)
+        flat = _sweep(params, spec, cond, pack, H, W, K, c2w, p, padded_len(H * W, p))
+    return _frame_maps(flat, H, W)
 
 
-def render_frame_sharded(*args, **kwargs):
-    """Multi-card full-frame render: not ported yet."""
-    raise NotImplementedError(
-        "render_frame_sharded (rays sharded over several cards) comes with "
-        "scale-out, ROADMAP A11; render_frame renders on one card")
+def _gather_model(params: Params, spec: MoFaNeRF, cond: FrameCond, rules: Params, mesh):
+    """Whole params and conditioning from this rank's model shards: the fine
+    field's weights (`rules`) and its folded biases (those narrower than the
+    field's width)."""
+    params = gather_params(params, rules, mesh)
+    keys = [k for k, v in cond.fine.items() if v.shape[-1] != spec.fine.width]
+    whole = gather_blocks([(cond.fine[k], 0) for k in keys], mesh, "model")
+    return params, FrameCond(cond.coarse, {**cond.fine, **dict(zip(keys, whole))})
+
+
+def render_frame_sharded(
+    params: Params,
+    spec: MoFaNeRF,
+    cond: FrameCond,
+    H: int,
+    W: int,
+    K,
+    c2w,
+    mesh,
+    rules: Params | None = None,
+) -> Dict[str, torch.Tensor]:
+    """Multi-card full-frame render: the frame's rays, padded with rays of
+    ones to packets x n_data (p = min(packet_size, max(1, n // n_data)), as
+    the JAX package pads them), are split over the mesh's `data` axis; every
+    rank renders its contiguous block packet by packet through the field
+    kernel, with no collective, and the maps are gathered on every rank and
+    cut to [H, W, ...].
+
+    Every rank passes the same params and conditioning: whole, or, with
+    `rules` (shard_params_rules of the whole tree), its model shards, which
+    are gathered once a frame before the kernel's operands are packed (the
+    kernel runs every layer of a block in one CTA; it is not split)."""
+    n_data = axis_size(mesh, "data")
+    with torch.no_grad():
+        if rules is not None:
+            params, cond = _gather_model(params, spec, cond, rules, mesh)
+        p = min(spec.render.packet_size, max(1, H * W // n_data))
+        local = _sweep(params, spec, cond, pack_frame(params, spec, cond), H, W, K, c2w, p,
+                       padded_len(H * W, p * n_data), mesh)
+        whole = gather_blocks([(v, 0) for v in local.values()], mesh)
+    return _frame_maps(dict(zip(local, whole)), H, W)
 
 
 def render_path(

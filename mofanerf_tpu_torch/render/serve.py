@@ -33,7 +33,10 @@ from mofanerf_tpu_torch.ops.serve_kernel import (
     ray_operands,
     render_packet_fused,
 )
-from mofanerf_tpu_torch.ops.sweep import sweep_frame, sweep_rays
+from mofanerf_tpu_torch.ops.sweep import (compact_rays, scatter_background, sweep_frame,
+                                          sweep_rays)
+from mofanerf_tpu_torch.parallel.collectives import data_rows, gather_blocks, pad_rows, padded_len
+from mofanerf_tpu_torch.parallel.mesh import axis_size
 from mofanerf_tpu_torch.utils.device import to_device
 
 Params = Dict[str, Any]
@@ -190,9 +193,11 @@ def render_path_serve(
     so small frames still fill big packets and compaction pools background
     across the path. Returns [F, H, W, ...] maps.
 
-    Multi-card serving (`mesh`) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card serving (mesh) is not ported yet")
+    mesh (parallel/mesh.py): the multi-card path. Every rank compacts the
+    whole stream alike, the compacted rays are padded to packets x n_data
+    and split over the mesh's `data` axis, each rank sweeps its block, and
+    the maps are gathered on every rank before the background scatter: the
+    same maps as one card's."""
     if isinstance(cfg, StudentConfig) and cond is not None:
         params, cond = fold_student_code(params, cond), None
     dev = _params_device(params)
@@ -210,10 +215,34 @@ def render_path_serve(
 
     pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
     packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
-    out = sweep_rays(
-        lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), ro, rd, packet_size,
-        aabb_min=lo, aabb_max=hi, near=near, far=far,
-        hit_fraction=hit_fraction, white_bkgd=white_bkgd,
-        packet_multiple=_fused_block_multiple(fused), prepare=prepare,
-    )
+    ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
+    kw = dict(aabb_min=lo, aabb_max=hi, near=near, far=far, hit_fraction=hit_fraction,
+              white_bkgd=white_bkgd, packet_multiple=_fused_block_multiple(fused),
+              prepare=prepare)
+    if mesh is None:
+        out = sweep_rays(ray_fn, ro, rd, packet_size, **kw)
+    else:
+        out = _sharded_sweep(ray_fn, ro, rd, packet_size, mesh, **kw)
     return {k: v.reshape((F, H, W) + v.shape[1:]) for k, v in out.items()}
+
+
+def _sharded_sweep(ray_fn, ro, rd, packet_size, mesh, aabb_min, aabb_max, near, far,
+                   hit_fraction, white_bkgd, packet_multiple, prepare):
+    """sweep_rays over the mesh's `data` axis (the JAX package's
+    `_sharded_sweep`): p = min(packet_size, max(1, n // n_data)) rounded up
+    to the packet multiple, the global compaction, the compacted stream
+    padded to p x n_data, this rank's block swept, the blocks gathered on
+    every rank, then the background scattered."""
+    n_data = axis_size(mesh, "data")
+    n = ro.shape[0]
+    p = min(packet_size, max(1, n // n_data))
+    p = -(-p // packet_multiple) * packet_multiple
+    ro_c, rd_c, sel, n_eval = compact_rays(ro, rd, p, aabb_min, aabb_max, near, far,
+                                            hit_fraction)
+    n_total = padded_len(n_eval, p * n_data)
+    with torch.no_grad():
+        o, d = (data_rows(pad_rows(r, n_total), mesh) for r in (ro_c, rd_c))
+        local = sweep_rays(ray_fn, o, d, p, packet_multiple=packet_multiple, prepare=prepare)
+        whole = gather_blocks([(v, 0) for v in local.values()], mesh)
+    maps = {k: v[None] for k, v in zip(local, whole)}
+    return scatter_background(maps, sel, n, n_eval, white_bkgd)

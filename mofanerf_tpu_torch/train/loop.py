@@ -33,8 +33,8 @@ import numpy as np
 import torch
 
 from mofanerf_tpu_torch.config import Config
-from mofanerf_tpu_torch.data.device_data import (DeviceSamplerConfig, build_device_dataset,
-                                                 sample_batch_device)
+from mofanerf_tpu_torch.data.device_data import (DeviceDataset, DeviceSamplerConfig,
+                                                 build_device_dataset, sample_batch_device)
 from mofanerf_tpu_torch.data.facescape import (FacescapeDataset, load_facescape_data,
                                                load_shape_codes, read_image, valid_persons)
 from mofanerf_tpu_torch.data.landmarks import TrainRaySampler, anneal_lm_frac
@@ -222,6 +222,23 @@ def device_generator(seed: int, i: int, use: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(3 * base + use)
 
 
+def train_chunk_device_data(state, store: DeviceDataset, K: torch.Tensor, i0: int,
+                            n_steps: int, scfg: DeviceSamplerConfig, spec: MoFaNeRF, tx,
+                            seed: int, mesh=None):
+    """Steps i0 .. i0 + n_steps - 1 of the device-data path, back to back with
+    no host read: step i's batch drawn on the device from
+    device_generator(seed, i, 0), its render's draws from (seed, i, 1).
+    Under `mesh` every rank draws the same whole batch and trains on its rows
+    (train_step(mesh=)). Returns (state, the last step's metrics)."""
+    dev = store.images.device
+    metrics = None
+    for i in range(i0, i0 + n_steps):
+        batch = sample_batch_device(store, K, i, scfg, device_generator(seed, i, 0, dev))
+        state, metrics = train_step(state, batch, device_generator(seed, i, 1, dev), spec, tx,
+                                    mesh=mesh)
+    return state, metrics
+
+
 def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, grid,
                        density_ema, save, start, n_total, seed, uv_cache, rng_eval, dev):
     """The device-resident loop: the train split on the card, batches drawn
@@ -248,11 +265,9 @@ def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, 
     metrics = None
     while i < n_total:
         prev = i
-        for _ in range(min(C - i % C, n_total - i)):
-            batch = sample_batch_device(dd, Kt, i, scfg, device_generator(seed, i, 0, dev))
-            state, metrics = train_step(state, batch, device_generator(seed, i, 1, dev),
-                                        spec, tx)
-            i += 1
+        n = min(C - i % C, n_total - i)
+        state, metrics = train_chunk_device_data(state, dd, Kt, i, n, scfg, spec, tx, seed)
+        i += n
 
         def crossed(v: int) -> bool:
             return v > 0 and (i // v) > (prev // v)

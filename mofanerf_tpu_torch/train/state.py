@@ -25,9 +25,11 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from mofanerf_tpu_torch.parallel.collectives import (ModelAxis, all_reduce_mean, all_true,
+                                                     data_rows, model_axis)
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 init_model_params, prepare_conditioning,
-                                                render_rays)
+                                                render_rays, train_draws)
 from mofanerf_tpu_torch.utils.device import f32_products, resolve_device
 from mofanerf_tpu_torch.utils.metrics import img2mse, mse2psnr
 from mofanerf_tpu_torch.utils.tree import map_tree, tree_leaves, tree_unflatten
@@ -123,14 +125,16 @@ class Batch(NamedTuple):
 
 def loss_fn(params: Params, spec: MoFaNeRF, batch: Batch,
             generator: torch.Generator | None = None,
-            draws: Dict[str, torch.Tensor] | None = None):
+            draws: Dict[str, torch.Tensor] | None = None,
+            tp: ModelAxis | None = None):
     """(MSE(fine) + MSE(coarse), MSE(fine)) of a batch, differentiable in
-    `params`. The random draws come from `draws` or `generator`."""
+    `params`. The random draws come from `draws` or `generator`. With the
+    model axis `tp`, a fine field in column blocks runs tensor-parallel."""
     tex = encode_texture(params, spec, batch.uv_map)
     cond = prepare_conditioning(params, spec, batch.shape_code,
-                                exp_code_for(params, batch.exp_type), tex)
+                                exp_code_for(params, batch.exp_type), tex, tp)
     out = render_rays(params, spec, cond, batch.rays_o, batch.rays_d, generator=generator,
-                      train=True, draws=draws, autograd=True)
+                      train=True, draws=draws, autograd=True, tp=tp)
     img_loss = img2mse(out["rgb"], batch.target_rgb)
     loss = img_loss
     if "rgb0" in out:
@@ -138,28 +142,65 @@ def loss_fn(params: Params, spec: MoFaNeRF, batch: Batch,
     return loss, img_loss
 
 
+def _rank_rows(batch: Batch, generator, spec: MoFaNeRF, draws, mesh):
+    """This data rank's rows of the whole batch and of its draws (those of
+    `generator` drawn for the whole batch, then cut)."""
+    if generator is not None:
+        draws = train_draws(generator, spec, batch.rays_o.shape[0], batch.rays_o.device, draws)
+    rows = {k: data_rows(getattr(batch, k), mesh) for k in ("rays_o", "rays_d", "target_rgb")}
+    if batch.coords is not None:
+        rows["coords"] = data_rows(batch.coords, mesh)
+    return batch._replace(**rows), {k: data_rows(v, mesh) for k, v in (draws or {}).items()}
+
+
+def batch_grads(params: Params, batch: Batch, generator: torch.Generator | None,
+                spec: MoFaNeRF, draws: Dict[str, torch.Tensor] | None = None, mesh=None):
+    """(loss, fine MSE, gradients in tree_leaves order) of a batch, detached.
+    Under `mesh` (see train_step) of this rank's rows, then averaged over
+    `data` in one flat all_reduce."""
+    tp = model_axis(mesh)
+    if mesh is not None:
+        batch, draws = _rank_rows(batch, generator, spec, draws, mesh)
+        generator = None
+    with f32_products():
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, img_loss = loss_fn(tree_unflatten(params, live), spec, batch, generator, draws, tp)
+        grads = list(torch.autograd.grad(loss, live, allow_unused=True,
+                                         materialize_grads=True))
+    loss, img_loss = loss.detach(), img_loss.detach()
+    if mesh is not None:
+        *grads, loss, img_loss = all_reduce_mean(grads + [loss, img_loss], mesh)
+    return loss, img_loss, grads
+
+
 def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None,
                spec: MoFaNeRF, tx: Adam, skip_nonfinite: bool = True,
-               draws: Dict[str, torch.Tensor] | None = None):
+               draws: Dict[str, torch.Tensor] | None = None, mesh=None):
     """One optimisation step. Returns (new_state, metrics), all on the
     params' device; nothing is read back to the host.
 
     skip_nonfinite: when the loss or any gradient is non-finite, keep the
     old params and optimiser state (count included) and only advance
-    `step`."""
+    `step`.
+
+    mesh (parallel/mesh.py): every rank passes the whole batch; it trains on
+    its `data` rows (and on the rows of the whole batch's draws: those of
+    `generator` are drawn for the whole batch), the texture encoder and the
+    conditioning run whole on every rank, and the gradients, the loss and
+    the fine MSE are averaged over `data` in one flat all_reduce before Adam,
+    so that every rank takes the same step and the same skip. State whose
+    fine field is in model shards (shard_params, Adam's moments alike) runs
+    it tensor-parallel over `model`."""
     leaves = tree_leaves(state.params)
-    with f32_products():
-        live = [p.detach().requires_grad_(True) for p in leaves]
-        loss, img_loss = loss_fn(tree_unflatten(state.params, live), spec, batch,
-                                 generator, draws)
-        grads = list(torch.autograd.grad(loss, live, allow_unused=True,
-                                         materialize_grads=True))
-    loss, img_loss = loss.detach(), img_loss.detach()
+    tp = model_axis(mesh)
+    loss, img_loss, grads = batch_grads(state.params, batch, generator, spec, draws, mesh)
     new_p, new_mu, new_nu, count = tx.update(grads, state.opt_state, leaves)
     metrics = {"loss": loss, "psnr": mse2psnr(img_loss)}
     if skip_nonfinite:
         finite = torch.stack([torch.isfinite(g).all() for g in grads])
         ok = torch.isfinite(loss) & finite.all()
+        if tp is not None:   # the model ranks hold other blocks of the fine field
+            ok = all_true(ok, tp.group)
 
         def pick(new, old):
             return [torch.where(ok, n, o) for n, o in zip(new, old)]

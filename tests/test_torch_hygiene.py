@@ -72,7 +72,10 @@ def test_every_module_imports_with_jax_blocked():
             "mofanerf_tpu_torch.cli.align_clip", "mofanerf_tpu_torch.convert",
             "mofanerf_tpu_torch.cli.convert_ckpt", "mofanerf_tpu_torch.train.orbax",
             "mofanerf_tpu_torch.utils.ocdbt", "mofanerf_tpu_torch.utils.zstd",
-            "mofanerf_tpu_torch.utils.profiling", "mofanerf_tpu_torch.ops.uv_sample"} <= set(mods)
+            "mofanerf_tpu_torch.utils.profiling", "mofanerf_tpu_torch.ops.uv_sample",
+            "mofanerf_tpu_torch.parallel", "mofanerf_tpu_torch.parallel.mesh",
+            "mofanerf_tpu_torch.parallel.collectives", "mofanerf_tpu_torch.parallel.world",
+            "mofanerf_tpu_torch.parallel.dryrun"} <= set(mods)
     code = f"""
 import sys
 
@@ -372,3 +375,31 @@ def test_preprocess_and_datagen_entry_points_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "faces").exists()
+
+
+def test_multi_card_entry_points_default_to_the_card(tmp_path):
+    """The multi-card layer asks for the card too: init_distributed, a world
+    of ranks, a world of one, and the dryrun's entry, before any rank starts
+    or any process group is made."""
+    import torch.distributed as dist
+
+    from mofanerf_tpu_torch.parallel import init_distributed
+    from mofanerf_tpu_torch.parallel import dryrun
+    from mofanerf_tpu_torch.parallel.world import run_world, single_rank
+
+    def world_of_one():
+        with single_rank(workdir=str(tmp_path)):
+            pass
+
+    calls = [
+        lambda: init_distributed(init_method=f"file://{tmp_path}/store", rank=0, world_size=1),
+        lambda: run_world(dryrun.sharded_paths, 2, {}, workdir=str(tmp_path)),
+        world_of_one,
+        lambda: dryrun.main(["1", "--timeout", "30"]),
+    ]
+    if torch.cuda.is_available():
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()

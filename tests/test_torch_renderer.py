@@ -46,6 +46,8 @@ from mofanerf_tpu.ops.rays import pose_spherical
 from mofanerf_tpu.render import renderer as jr
 from mofanerf_tpu_torch import bridge
 from mofanerf_tpu_torch.models import field as tfield
+from mofanerf_tpu_torch.parallel import make_mesh
+from mofanerf_tpu_torch.parallel.world import single_rank
 from mofanerf_tpu_torch.render import renderer as tr
 
 T = torch.from_numpy
@@ -293,7 +295,7 @@ def test_render_frame_pads_the_last_packet(dtype):
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_render_path_with_render_factor():
+def test_render_path_with_render_factor(tmp_path):
     jspec, tspec = _specs()
     jp, tp = _model()
     jparams, jcond, tcond = _conds(jp, tp, jspec, tspec)
@@ -309,5 +311,9 @@ def test_render_path_with_render_factor():
     # one cond for the whole path, [N, 4, 4] poses, no down-sampling
     one_rgb, _ = tr.render_path(tp, tspec, tcond, poses[:1], (6, 6, 15.0))
     np.testing.assert_allclose(one_rgb[0], got_rgb[0], rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tr.render_frame_sharded(tp, tspec, tcond, 6, 6, None, None, None)
+    # the multi-card frame on a world of one rank (gloo, in this process) is the frame
+    K = np.array([[15.0, 0, 3.0], [0, 15.0, 3.0], [0, 0, 1]], np.float32)
+    one = tr.render_frame(tp, tspec, tcond, 6, 6, K, poses[0][:3])
+    with single_rank("cpu", str(tmp_path)):
+        sharded = tr.render_frame_sharded(tp, tspec, tcond, 6, 6, K, poses[0][:3], make_mesh())
+    assert set(sharded) == set(one) and all(torch.equal(sharded[k], one[k]) for k in one)

@@ -18,6 +18,8 @@ from mofanerf_tpu.models import student as jstudent
 from mofanerf_tpu_torch import bridge
 from mofanerf_tpu_torch.models import student
 from mofanerf_tpu_torch.ops import sweep
+from mofanerf_tpu_torch.parallel import make_mesh
+from mofanerf_tpu_torch.parallel.world import single_rank
 from mofanerf_tpu_torch.render import serve
 from mofanerf_tpu_torch.train import distill
 
@@ -118,7 +120,7 @@ def test_render_frame_serve_folds_a_code():
 
 
 @pytest.mark.parametrize("hit_fraction", [1.0, None])
-def test_render_path_serve_matches_jax(hit_fraction):
+def test_render_path_serve_matches_jax(hit_fraction, tmp_path):
     jcfg, tcfg, jp, tp = _student("float32", 3, depth=3, width=128, multires=6, cond_dim=5)
     code = np.random.default_rng(3).standard_normal(5).astype(np.float32) * 0.3
     poses = np.stack([jax_rays.pose_spherical(a, -5.0, 16.0) for a in (-20.0, 0.0, 25.0)])
@@ -130,8 +132,11 @@ def test_render_path_serve_matches_jax(hit_fraction):
     got = serve.render_path_serve(tp, tcfg, T(code), poses, 16, 16, K, **kw)
     assert got["rgb"].shape == (3, 16, 16, 3)
     _check(got, want, 1e-4, 1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        serve.render_path_serve(tp, tcfg, T(code), poses, 16, 16, K, mesh=object(), **kw)
+    # the multi-card path on a world of one rank (gloo, in this process) is the path
+    with single_rank("cpu", str(tmp_path)):
+        sharded = serve.render_path_serve(tp, tcfg, T(code), poses, 16, 16, K, mesh=make_mesh(),
+                                          **kw)
+    assert set(sharded) == set(got) and all(torch.equal(sharded[k], got[k]) for k in got)
 
 
 def test_compaction_and_buckets_match_jax():
@@ -142,7 +147,7 @@ def test_compaction_and_buckets_match_jax():
     rd = (rng.standard_normal((300, 3)) * [0.2, 0.2, 0.0] - [0, 0, 1]).astype(np.float32)
     for hf in (0.25, 0.5, None):
         j = jax_sweep._compact_rays(jnp.asarray(ro), jnp.asarray(rd), 64, *AABB, NEAR, FAR, hf)
-        t = sweep._compact_rays(T(ro), T(rd), 64, *AABB, NEAR, FAR, hf)
+        t = sweep.compact_rays(T(ro), T(rd), 64, *AABB, NEAR, FAR, hf)
         assert t[3] == j[3]
         if j[2] is None:
             assert t[2] is None
