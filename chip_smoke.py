@@ -22,13 +22,17 @@ Phases, each failing loudly:
        the items the hit mask leaves without a hit ray;
      - the field kernel at full width, both of the teacher's fields (coarse
        8x256 with 64 samples a ray, fine 10x1024 with 128: the two widths the
-       wgmma design takes in bf16; f32 runs the mma.sync design), at ragged
+       wgmma design takes in bf16; f32 runs the 3xTF32 design), at ragged
        shapes (fewer rows than one row block; fewer blocks than the card has
        SMs, with blocks that span rays; more blocks than SMs with a ragged
        last one), at the packet shape of the teacher path and, for the fine
        field, at distillation's (32768 points, one sample a ray) and --fast's
-       (8192 rays x 32 samples; f32 on a part of both); bf16 once more at
-       each timed shape with contracting weights (x 0.4, atol 5e-3);
+       (8192 rays x 32 samples; f32 on an eighth of these three, the shapes
+       its earlier runs timed, and on the whole packet); bf16 once more at
+       each timed shape
+       with contracting weights (x 0.4, atol 5e-3); f32 timed against its
+       plain version in turns (CUDA events), beside the FFMA bound and the
+       bound of three TF32 products a product;
      - a yardstick, not on any path: one hidden layer's product at the packet
        shapes through torch.matmul (`layer_matmul_ms`);
   4. serving path: a seeded bf16 student artifact through the run_render CLI
@@ -39,7 +43,12 @@ Phases, each failing loudly:
   5. teacher path: a seeded full-width model, a seeded UV map through the
      texture encoder, then the run_render CLI's teacher route (2 views) and
      render_path with a conditioning a pose (2 poses, 2 expressions), at
-     512x512 with 64 + 64 samples.
+     512x512 with 64 + 64 samples; then a 256x256 f32 teacher frame through
+     run_render --compute_dtype float32 (the field kernel's 3xTF32 design)
+     and render_path, its seconds and launches; and the JAX package's
+     examples' small model (netdepth 2, netwidth 8 / 16, which the kernel
+     takes padded to width 64) through the field kernel, f32 and bf16,
+     against its plain version and a frame against the CPU's.
   6. training path: a 512x512 FaceScape-shaped fixture written by the port
      (JPEG UV maps decoded by the port), the run_train CLI at the full width of
      configs/exp_mofanerf.txt keeping its occupancy grid (updated every 4
@@ -132,6 +141,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # card peaks for the bound (NVIDIA H100 SXM data sheet, dense)
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12   # the field kernel's f32 design: three TF32 products an f32 product
 PEAK_BYTES = 3.35e12
 
 D, W, MR, S = 4, 128, 8, 32
@@ -169,6 +179,12 @@ RAGGED = ((1, 50), (61, 67))
 # queries (DistillConfig.batch points, one a ray) and the fine field of `run_render --fast`
 # (a packet of spec.render.packet_size rays, k_keep = 32 samples)
 SLICE_SHAPES = {"distill": (32768, 1), "fast": (8192, 32)}
+# the f32 teacher frame's side (run_render --compute_dtype float32)
+F32_SIDE = 256
+# the examples' small model (examples/refine_nerf_corpus.py and fit_quality.py of the JAX
+# package): netdepth 2, netwidth 8 (coarse) and 16 (fine), 8 + 8 samples; its frame's side
+SMALL_FIELDS = {"coarse": (2, 8, 8), "fine": (2, 16, 16)}   # depth, width, samples (fine: union)
+SMALL_SIDE = 64
 # the fitting phase: run_fit's iterations and pose freeze, the initial pose's rotation off
 # the target's, the steady step's warm-ups and timed steps a pyramid level, profiled steps
 FIT_ITERS, FIT_FREEZE, FIT_ROTATION_DEG = 100, 30, 5.0
@@ -457,11 +473,15 @@ def field_kernel_phase(failures, dev):
                 pe, dirf = field_inputs(cfg, w_dirs, n_rays, ns, 5, dev)
                 worst = max(worst, hold(name, dt_name, fused, pe, dirf, cfg, n_rays, ns, block)[0])
             # the timed shapes: the teacher's packet, and for the fine field the two
-            # shapes of this slice (f32 runs FFMA: the fine field's take a part of them)
+            # shapes of this slice. f32's fine shapes keep the eighth they were cut to
+            # while f32 ran FFMA (so that the rows compare with earlier runs), and the
+            # whole fine packet is timed too
             part = 1 if (dt == torch.bfloat16 or name == "coarse") else 8
             timed = [("packet", PACKET // part, n_samples)]
             if name == "fine":
                 timed += [(label, n // part, ns) for label, (n, ns) in SLICE_SHAPES.items()]
+                if dt == torch.float32:
+                    timed.append(("packet_full", PACKET, n_samples))
             for label, n_rays, ns in timed:
                 if ns == 1:   # distillation: points anywhere in the box, a ray each
                     pe, dirf = point_inputs(cfg, w_dirs, n_rays, 6, dev)
@@ -475,17 +495,37 @@ def field_kernel_phase(failures, dev):
                 n_rows = n_rays * ns
                 esize = 2 if dt == torch.bfloat16 else 4
                 ops_count = n_rows * field_flops_per_point(cfg, n_layers)
-                t_ops = ops_count / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32) * 1e3
-                # about 0.2 s of launches a shape, reckoned at 30% of the peak
+                # f32: the 3xTF32 design's floor (three TF32 products a product on the tensor
+                # cores), with the FFMA bound of the f32 work beside it
+                t_ffma = ops_count / PEAK_F32 * 1e3
+                t_ops = (ops_count / PEAK_BF16 * 1e3 if dt == torch.bfloat16
+                         else 3 * ops_count / PEAK_TF32 * 1e3)
                 with torch.no_grad():
-                    ms = cuda_ms(lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
-                                 iters=max(2, min(20, int(60.0 / t_ops))), warmup=1)
+                    if dt == torch.bfloat16:
+                        # about 0.2 s of launches a shape, reckoned at 30% of the peak
+                        ms = cuda_ms(lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
+                                     iters=max(2, min(20, int(60.0 / t_ops))), warmup=1)
+                        turns = None
+                    else:
+                        # f32: the kernel and its plain version in turns (kernel, plain,
+                        # plain, kernel), CUDA events, ~0.4 s of the plain version a turn
+                        iters = max(1, min(10, int(400.0 / max(ref_time, 1e-3))))
+                        runs = {"kernel": lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
+                                "plain": lambda: fk.fused_field_apply_ref(fused, pe, dirf, cfg,
+                                                                          ns)}
+                        turns = {"kernel": [], "plain": []}
+                        for turn in ("kernel", "plain", "plain", "kernel"):
+                            turns[turn].append(cuda_ms(runs[turn], iters=iters, warmup=1))
+                        ms = sum(turns["kernel"]) / 2
+                        ref_time = sum(turns["plain"]) / 2
                 w_bytes = field_weight_bytes(cfg, n_layers, esize)
                 t_bytes = (field_io_bytes(cfg, n_rows, n_rays) + w_bytes) / PEAK_BYTES * 1e3
-                # what the design's weight traffic (every CTA streams the whole stack once)
-                # would take out of device memory. Not a floor: CTAs in flight walk the
-                # stack together and mostly hit L2, so the kernel may run under it
-                t_stream = -(-n_rows // block) * w_bytes / PEAK_BYTES * 1e3
+                # what the design's weight traffic (every row block streams the whole stack
+                # once; f32 its high and low parts) would take out of device memory. Not a
+                # floor: CTAs in flight walk the stack together and mostly hit L2, so the
+                # kernel may run under it
+                t_stream = (-(-n_rows // block) * w_bytes * (1 if dt == torch.bfloat16 else 2)
+                            / PEAK_BYTES * 1e3)
                 bound = max(t_ops, t_bytes)
                 key = (name, dt_name) if label == "packet" else (name, dt_name, label)
                 rows[key] = {
@@ -495,11 +535,19 @@ def field_kernel_phase(failures, dev):
                     "max_abs_err": max(worst, err) if label == "packet" else err,
                     "rays": n_rays, "samples": ns,
                     "block_rows": block}
+                if turns is not None:
+                    rows[key].update(ffma_bound_ms=t_ffma, turns_ms=turns)
+                    print(f"field kernel {name} f32 ({label}) in turns: kernel "
+                          f"{', '.join(f'{v:.3f}' for v in turns['kernel'])} ms, plain "
+                          f"{', '.join(f'{v:.3f}' for v in turns['plain'])} ms; FFMA bound "
+                          f"{t_ffma:.3f} ms ({t_ffma / ms:.1%}), 3xTF32 bound {t_ops:.3f} ms; "
+                          f"{ref_time / ms:.2f}x the plain version's speed", flush=True)
                 print(f"field kernel {name} {dt_name} ({label}): {ms:.3f} ms a launch of "
                       f"{n_rays} rays x {ns} samples (plain PyTorch {ref_time:.3f} ms); "
-                      f"operations bound {t_ops:.3f} ms ({ops_count / 1e12:.3f} TFLOP), "
+                      f"operations bound {t_ops:.3f} ms ({ops_count / 1e12:.3f} TFLOP"
+                      f"{'' if dt == torch.bfloat16 else ' of f32, three TF32 products each'}), "
                       f"bytes-once bound {t_bytes:.4f} ms; this design's weight traffic "
-                      f"{t_stream:.3f} ms ({-(-n_rows // block)} CTAs x {w_bytes / 1e6:.2f} MB "
+                      f"{t_stream:.3f} ms ({-(-n_rows // block)} row blocks x {w_bytes / 1e6:.2f} MB "
                       f"at device-memory rate, not a floor: the stream mostly hits L2); "
                       f"{bound / ms:.1%} of bound", flush=True)
     return rows
@@ -835,6 +883,185 @@ def teacher_path_phase(failures, card, dev, field_rows, H=TEACHER_SIDE):
         if not acc_max > 0.05:
             fail(failures, "teacher render is empty (acc ~ 0 everywhere)")
     return launches, sec
+
+
+def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
+    """Two paths the field kernel's 3xTF32 design and its padding serve: a full-width
+    teacher frame in f32 through the CLI (`--compute_dtype float32`) and render_path, and
+    the JAX package's examples' small model (padded to width 64 by the wrapper) through the
+    kernel, f32 and bf16, against its plain version on the card and a frame against the
+    CPU's. Each path's launches are counted with the count zeroed just before it."""
+    import torch
+
+    from mofanerf_tpu_torch.bridge import map_tree
+    from mofanerf_tpu_torch.cli import run_render
+    from mofanerf_tpu_torch.config import Config
+    from mofanerf_tpu_torch.models.field import FieldConfig, fold_conditioning
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.rays import get_rays, pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, RenderConfig, exp_code_for,
+                                                    init_model_params, prepare_conditioning,
+                                                    render_frame, render_path, render_rays)
+
+    out = {}
+    spec = Config(compute_dtype="float32").model_spec()
+    packets = -(-H * H // spec.render.packet_size)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        frames = run_render.main(["--out_dir", os.path.join(tmp, "f32"), "--n_views", "1",
+                                  "--render_factor", str(512 // H), "--compute_dtype", "float32",
+                                  "--basedir", os.path.join(tmp, "logs"),
+                                  "--uvdir", os.path.join(tmp, "uv"),
+                                  "--shape_codes_path", os.path.join(tmp, "none.npy"),
+                                  "--device", str(dev)])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        cli_launches = fk.launch_count
+    # the steady frame: render_path on a seeded f32 model, one pose
+    gen = torch.Generator().manual_seed(13)
+    params = init_model_params(gen, spec, device=dev)
+    with torch.no_grad():
+        cond = prepare_conditioning(params, spec, torch.randn(spec.shape_dim, generator=gen).to(dev),
+                                    exp_code_for(params, 3),
+                                    torch.randn(spec.tex_dim, generator=gen).to(dev))
+    pose = pose_spherical(-25.0, -5.0, 16.0)[None]
+    render_path(params, spec, [cond], pose, (512, 512, 1200.0), render_factor=512 // H)
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    t0 = time.perf_counter()
+    rgbs, _ = render_path(params, spec, [cond], pose, (512, 512, 1200.0), render_factor=512 // H)
+    torch.cuda.synchronize()
+    t_frame = time.perf_counter() - t0
+    path_launches = fk.launch_count
+    kernel_s = packets * (field_rows[("coarse", "float32")]["ms"]
+                          + field_rows[("fine", "float32", "packet_full")]["ms"]) / 1e3
+    print(f"f32 teacher: run_render --compute_dtype float32 rendered {frames.shape[0]} frame "
+          f"{frames.shape[1]}x{frames.shape[2]} in {t_cli:.3f} s (model init included), "
+          f"{cli_launches} field kernel launches (expected {2 * packets}); render_path "
+          f"{t_frame:.4f} s a {H}x{H} frame, {path_launches} launches; {packets} packets x "
+          f"(coarse + fine f32 launch, as timed in the kernel phase) = {kernel_s:.4f} s, "
+          f"{kernel_s / t_frame:.1%} of the frame; on {card}", flush=True)
+    for label, n, want in (("CLI", cli_launches, 2 * packets), ("render_path", path_launches,
+                                                                 2 * packets)):
+        if n != want:
+            fail(failures, f"f32 teacher {label}: {n} field kernel launches, expected {want}")
+    for name, arr in (("f32 teacher CLI", frames), ("f32 render_path", rgbs)):
+        if arr.shape[1:3] != (H, H) or not np.isfinite(arr).all() or arr.min() < 0.0 \
+                or arr.max() > 1.0 + 1e-5:
+            fail(failures, f"{name}: shape {arr.shape} or values outside [0, 1]")
+    out["f32_teacher"] = {"side": H, "cli_s": t_cli, "frame_s": t_frame,
+                          "launches": cli_launches + path_launches, "kernel_s": kernel_s}
+    del params, cond
+
+    # the examples' small model: fields the kernel takes padded (width 64, depth 6)
+    small = {}
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        sspec = MoFaNeRF(
+            coarse=FieldConfig(depth=SMALL_FIELDS["coarse"][0], width=SMALL_FIELDS["coarse"][1],
+                               compute_dtype=dt),
+            fine=FieldConfig(depth=SMALL_FIELDS["fine"][0], width=SMALL_FIELDS["fine"][1],
+                             compute_dtype=dt),
+            render=RenderConfig(n_coarse=SMALL_FIELDS["coarse"][2], n_importance=8),
+            uv_size=128)
+        gen = torch.Generator().manual_seed(17)
+        params = init_model_params(gen, sspec, device=dev)
+        codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
+        errs = {}
+        for name in ("coarse", "fine"):
+            cfg = getattr(sspec, name)
+            fused = fk.pack_fused_params(params[name], fold_conditioning(params[name], *codes),
+                                         cfg)
+            pe, dirf = field_inputs(cfg, params[name]["view"]["w_dirs"], 8192,
+                                    SMALL_FIELDS[name][2], 19, dev)
+            with torch.no_grad():
+                got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg,
+                                                     SMALL_FIELDS[name][2]), -1)
+                torch.cuda.synchronize()
+                ref = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg,
+                                                         SMALL_FIELDS[name][2]), -1)
+            scale = max(1.0, float(ref.abs().max()))
+            tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
+            diff = (got - ref).abs()
+            errs[name] = float(diff.max())
+            rms = float(diff.square().mean().sqrt())
+            kcfg = fk.kernel_config(cfg)
+            print(f"small model {name} {cfg.depth}x{cfg.width} {dt_name} (kernel config "
+                  f"{kcfg.depth}x{kcfg.width}), 8192 rays x {SMALL_FIELDS[name][2]}: "
+                  f"max|kernel-plain| {errs[name]:.3e} rms {rms:.3e} (tol max {tol:.3e} rms "
+                  f"{tol_rms:.3e})", flush=True)
+            if not (errs[name] <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
+                fail(failures, f"small model {name} {dt_name}: the kernel disagrees with its "
+                               f"plain version")
+        with torch.no_grad():
+            cond = prepare_conditioning(params, sspec, codes[0], exp_code_for(params, 3), codes[2])
+        Ks = np.array([[60.0, 0, SMALL_SIDE / 2], [0, 60.0, SMALL_SIDE / 2], [0, 0, 1]],
+                      np.float32)
+        c2w = pose_spherical(-25.0, -5.0, 16.0)[:3]
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        on_card = render_frame(params, sspec, cond, SMALL_SIDE, SMALL_SIDE, Ks, c2w)
+        torch.cuda.synchronize()
+        launches = fk.launch_count
+        cpu = map_tree(lambda t: t.cpu(), params)
+        cpu_cond = type(cond)(*[map_tree(lambda t: t.cpu(), c) for c in cond])
+        on_cpu = render_frame(cpu, sspec, cpu_cond, SMALL_SIDE, SMALL_SIDE, Ks, c2w)
+        frame_err = {k: float((on_card[k].cpu() - on_cpu[k]).abs().max()) for k in on_cpu}
+        want = 2 * -(-SMALL_SIDE ** 2 // min(sspec.render.packet_size, SMALL_SIDE ** 2))
+        # the deterministic frame's coarse pass on every pixel. Its fine pass is not a sharp
+        # check here: the importance sampler's last quantile is 1 and jumps between two bin
+        # edges on opaque rays at the last bit of the coarse weights (tests/test_torch_
+        # renderer.py), which 8 coarse samples a ray make common. The stochastic render of
+        # the same rays from the same uniforms (all below 1) holds the coarse pass on every
+        # ray and the fine pass as tests/test_torch_renderer.py holds a deterministic one:
+        # five elements in six within the tolerance, all within a stated jump. Uniforms in
+        # the sampler's last, floor-mass bins of an opaque ray (u near 1) are as ill-
+        # conditioned, and with 8 + 8 samples a ray some rays draw one.
+        ftol, jump = (2e-3, 5e-2) if dt == torch.float32 else (6e-2, 0.3)
+        rays = get_rays(SMALL_SIDE, SMALL_SIDE, torch.as_tensor(Ks, device=dev),
+                        torch.as_tensor(c2w, dtype=torch.float32, device=dev))
+        ro, rd = (r.reshape(-1, 3) for r in rays)
+        ugen = torch.Generator().manual_seed(23)
+        draws = {"strat": torch.rand((ro.shape[0], sspec.render.n_coarse), generator=ugen),
+                 "pdf": torch.rand((ro.shape[0], sspec.render.n_importance), generator=ugen)
+                 .clamp(max=0.999)}
+        with torch.no_grad():
+            st_card = render_rays(params, sspec, cond, ro, rd, train=True,
+                                  draws={k: v.to(dev) for k, v in draws.items()})
+            st_cpu = render_rays(cpu, sspec, cpu_cond, ro.cpu(), rd.cpu(), train=True,
+                                 draws=draws)
+        st_diff = {k: (st_card[k].cpu() - st_cpu[k]).abs().flatten()
+                   for k in ("rgb0", "acc0", "rgb", "acc")}
+        st_err = {k: float(v.max()) for k, v in st_diff.items()}
+        st_q = {k: float(torch.quantile(st_diff[k], 5 / 6)) for k in ("rgb", "acc")}
+        print(f"small model {dt_name}: a {SMALL_SIDE}x{SMALL_SIDE} render_frame through the "
+              f"field kernel, {launches} launches (expected {want}), card vs CPU max |diff| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in frame_err.items())
+              + f" (tol {ftol} on rgb0 acc0; max acc {float(on_cpu['acc'].max()):.3f}, "
+              f"max rgb {float(on_cpu['rgb'].max()):.3f}); the same rays rendered with "
+              f"injected uniforms, card vs CPU max |diff| "
+              + ", ".join(f"{k} {v:.2e}" for k, v in st_err.items())
+              + ", fine pass 5/6 quantile " + ", ".join(f"{k} {v:.2e}" for k, v in st_q.items())
+              + f" (tol {ftol}, fine pass all within {jump})", flush=True)
+        if launches != want:
+            fail(failures, f"small model {dt_name}: {launches} launches, expected {want}")
+        if not all(frame_err[k] <= ftol for k in ("rgb0", "acc0")):
+            fail(failures, f"small model {dt_name}: card and CPU frames differ: {frame_err}")
+        if not (st_err["rgb0"] <= ftol and st_err["acc0"] <= ftol
+                and all(v <= ftol for v in st_q.values())
+                and st_err["rgb"] <= jump and st_err["acc"] <= jump):
+            fail(failures, f"small model {dt_name}: card and CPU renders from the same "
+                           f"uniforms differ: max {st_err}, fine 5/6 quantile {st_q}")
+        for k in ("rgb", "acc"):
+            if not bool(torch.isfinite(on_card[k]).all()) or float(on_card[k].min()) < 0.0 \
+                    or float(on_card[k].max()) > 1.0 + 1e-5:
+                fail(failures, f"small model {dt_name}: {k} not finite or outside [0, 1]")
+        small[dt_name] = {"max_abs_err": max(errs.values()), "frame_err": frame_err,
+                          "stochastic_err": st_err, "stochastic_fine_q56": st_q,
+                          "launches": launches}
+    out["small_model"] = small
+    return out
 
 
 def _random_linear(sd, g, key, cout, cin, gain=np.sqrt(2.0)):
@@ -3400,6 +3627,11 @@ def main(argv) -> int:
     field_launches, teacher_sec = teacher_path_phase(failures, card, dev, field_rows)
     print(f"path phase (teacher): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    f32_paths = f32_and_small_phase(failures, card, dev, field_rows)
+    print(f"path phase (f32 teacher frame, the examples' small model): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"f32_paths": dict(f32_paths, card=card)}), flush=True)
+    t0 = time.perf_counter()
     converted = convert_phase(failures, card, dev)
     print(f"path phase (convert: reference .tar -> convert_ckpt -> run_render): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -3513,6 +3745,32 @@ def main(argv) -> int:
             "library_ms": None,
             "block_rows": row["block_rows"],
             "f32": field_rows[("fine", "float32", label)],
+        })
+    # the f32 design (3xTF32) at the teacher's two packets, its launches on the f32 frame's
+    # path (half of the wrapper's count a field) and the small model's (padded, width 64)
+    small_launches = {k: v["launches"] // 2 for k, v in f32_paths["small_model"].items()}
+    for name, key in (("coarse", ("coarse", "float32")), ("fine", ("fine", "float32",
+                                                                  "packet_full"))):
+        row = field_rows[key]
+        depth, width, _ = FIELDS[name]
+        field_entries.append({
+            "name": f"fused_field_apply[{name} {depth}x{width} f32, 3xTF32 "
+                    f"{row['rays']}x{row['samples']}]",
+            "route": "cuda",
+            "source": "mofanerf_tpu_torch/csrc/field_kernel_tf32.cuh",
+            "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
+            "launches": f32_paths["f32_teacher"]["launches"] // 2 + small_launches["float32"],
+            "launches_by_path": {"f32_teacher": f32_paths["f32_teacher"]["launches"] // 2,
+                                 "small_model_f32": small_launches["float32"]},
+            "max_abs_err": max(row["max_abs_err"],
+                               f32_paths["small_model"]["float32"]["max_abs_err"]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "ffma_bound_ms": row["ffma_bound_ms"],
+            "block_rows": row["block_rows"],
         })
     print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",

@@ -1,5 +1,5 @@
-// The mma.sync design of the fused conditioned-field kernel: f32 (FFMA) at every width, and
-// bf16 (ldmatrix + mma.sync m16n8k16) at the widths the wgmma design does not cover.
+// The mma.sync design of the fused conditioned-field kernel: bf16 (ldmatrix + mma.sync
+// m16n8k16) at the widths the wgmma design does not cover (f32 runs the 3xTF32 design).
 // field_kernel.cu holds the contract, the dispatch and the C entry points; this file is
 // included by it alone.
 //
@@ -7,14 +7,13 @@
 // (W/64 warps across, the rest down: 1 x 16 at W = 1024, 4 x 4 at W = 256). A CTA keeps two
 // [rows, W] activations in shared memory through all layers (the running one, and the saved
 // xyz_code / sigma_feat that the skip pair reads), which with a 3-deep ring of weight chunks
-// caps it at 128 rows at W = 256 and 32 rows at W = 1024 (bf16; f32 half of that). All weights
-// of the kernel form one stream of [16, W] chunks (w_pts, the stack, w_view) that every thread
-// helps copy with cp.async into the ring, crossing layer boundaries without draining. bf16
-// products run on the tensor cores (f32 accumulators, A through ldmatrix, the [in, out]
-// weights as B through ldmatrix.trans); f32 products run as FFMA (tensor-core TF32 would drop
-// the f32 contract) with half the rows a warp. A layer's output overwrites its input after a
-// barrier. The skip pair accumulates both halves in the same registers. Raw sigma and rgb are
-// short dot products done by a warp a row. Rows past n_rows are computed on zeros and not
+// caps it at 128 rows at W = 256 and 32 rows at W = 1024. All weights of the kernel form one
+// stream of [16, W] chunks (w_pts, the stack, w_view) that every thread helps copy with
+// cp.async into the ring, crossing layer boundaries without draining. The products run on the
+// tensor cores (f32 accumulators, A through ldmatrix, the [in, out] weights as B through
+// ldmatrix.trans). A layer's output overwrites its input after a barrier. The skip pair
+// accumulates both halves in the same registers. Raw sigma and rgb are short dot products done
+// by a warp a row. Rows past n_rows are computed on zeros and not
 // written, so any N is accepted; a row's ray is row / samples.
 //
 // What holds this design (utils/field_variants.py, one H100 SXM at 700 W, bf16 at the packet
@@ -45,15 +44,6 @@ constexpr size_t kSmemLimit = 232448;  // 227 KB, the most a CTA can ask for on 
 
 template <typename T>
 struct Traits;
-
-template <>
-struct Traits<float> {
-  static constexpr int kWarpRows = 16;  // a 4x8 FFMA tile a thread
-  static constexpr int kChunk = 8;      // weight rows a chunk (same bytes as bf16's)
-  static constexpr int kTiles = 8;      // accumulators a thread, in fours
-  __device__ static float to_f(float x) { return x; }
-  __device__ static float from_f(float x) { return x; }
-};
 
 template <>
 struct Traits<bf16> {
@@ -189,33 +179,6 @@ __device__ __forceinline__ void warp_mma_chunk(float (&acc)[16][4], const bf16* 
   }
 }
 
-// f32: a lane holds rows {i * 4 + lane / 8} and columns (lane % 8) * 8 + {0..7} of the
-// [16, 64] tile; acc[i * 2 + j / 4][j % 4] is element (row i, column j) of that.
-__device__ __forceinline__ void warp_mma_chunk(float (&acc)[8][4], const float* a, const float* w,
-                                               int ld, int ncols, int lane) {
-  const int lr = lane >> 3, lc = (lane & 7) * 8;
-  if (lc >= ncols) return;
-#pragma unroll
-  for (int kk = 0; kk < Traits<float>::kChunk; ++kk) {
-    float av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(i * 4 + lr) * ld + kk];
-    const float4 b0 = *reinterpret_cast<const float4*>(w + kk * ld + lc);
-    const float4 b1 = *reinterpret_cast<const float4*>(w + kk * ld + lc + 4);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[i * 2][0] = fmaf(av[i], b0.x, acc[i * 2][0]);
-      acc[i * 2][1] = fmaf(av[i], b0.y, acc[i * 2][1]);
-      acc[i * 2][2] = fmaf(av[i], b0.z, acc[i * 2][2]);
-      acc[i * 2][3] = fmaf(av[i], b0.w, acc[i * 2][3]);
-      acc[i * 2 + 1][0] = fmaf(av[i], b1.x, acc[i * 2 + 1][0]);
-      acc[i * 2 + 1][1] = fmaf(av[i], b1.y, acc[i * 2 + 1][1]);
-      acc[i * 2 + 1][2] = fmaf(av[i], b1.z, acc[i * 2 + 1][2]);
-      acc[i * 2 + 1][3] = fmaf(av[i], b1.w, acc[i * 2 + 1][3]);
-    }
-  }
-}
-
 // Hand every accumulator of the warp's tile to epi(row, column, value), rows and columns
 // relative to the tile, columns below ncols only.
 template <class Epi>
@@ -235,18 +198,6 @@ __device__ __forceinline__ void warp_epilogue(const float (&acc)[16][4], int nco
         epi(strip * 16 + g + 8, c + 1, d[3]);
       }
     }
-  }
-}
-
-template <class Epi>
-__device__ __forceinline__ void warp_epilogue(const float (&acc)[8][4], int ncols, int lane,
-                                              Epi epi) {
-  const int lr = lane >> 3, lc = (lane & 7) * 8;
-  if (lc >= ncols) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) epi(i * 4 + lr, lc + j, acc[i * 2 + j / 4][j % 4]);
   }
 }
 

@@ -25,18 +25,35 @@ Layer plan of `w_stack` (skip=4, xyz_depth=3):
   [10..10+D-7]      sigma post
   ...               the same again for the rgb trunk (folded texture code)
 
-Two designs of the kernel (csrc/field_kernel.cu picks one by dtype and width,
-by the rule `uses_wgmma` states here). The wgmma design reads its weights as
-a stream of tiles, each the exact shared-memory image of one stage of its
-ring: `[256 output columns, 64 k]` bf16, K-major, in the 128-byte swizzle
-wgmma reads. `tile_weights` makes that stream once a `pack_fused_params`
-(`stream_plan` says which slice of which matrix each tile holds,
-`untile_weights` is the inverse); `FusedParams.w_tiles` carries it beside the
-plain operands, whose layout is unchanged.
+Any field that apply_field_folded takes runs: the wrapper maps a FieldConfig to
+the kernel's (`kernel_config`: the depth lifted to skip + 2, since a trunk
+with no post layers has that plan; the width raised to a multiple of 64 that
+holds the padded embedding) and pads every weight, bias and the view features
+with zeros, which add exactly 0 and stay 0 through ReLU: the outputs are
+unchanged bit for bit.
+
+Three designs of the kernel (csrc/field_kernel.cu picks one by dtype and
+width, by the rules `uses_tf32` and `uses_wgmma` state here):
+- f32, every width: the 3xTF32 design (`field_kernel_tf32.cuh`), one launch a
+  layer over row chunks of a device-memory scratch (`tf32_scratch`). Its
+  weights are a stream of tiles `[2, BN, 32]` f32: the high and the low TF32
+  part of a `[32 k, BN output columns]` slice, transposed (K-major) and in the
+  128-byte swizzle (`tile_weights_tf32`, made once a `pack_fused_params`;
+  `tf32_plan` says which products, `untile_weights_tf32` is the inverse).
+- bf16 at widths 256 and 1024: the wgmma design. It reads its weights as a
+  stream of tiles, each the exact shared-memory image of one stage of its
+  ring: `[256 output columns, 64 k]` bf16, K-major, in the 128-byte swizzle
+  wgmma reads. `tile_weights` makes that stream once a `pack_fused_params`
+  (`stream_plan` says which slice of which matrix each tile holds,
+  `untile_weights` is the inverse).
+- bf16 at the other widths: the mma.sync design, from the plain operands.
+`FusedParams.w_tiles` carries the design's stream beside the plain operands,
+whose layout is unchanged.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Any, Dict, NamedTuple
 
 import torch
@@ -55,6 +72,9 @@ _K_ALIGN = 16        # the embedding's fan-in is zero-padded to the mma depth
 _REF_CHUNK = 65536   # rows the plain version upcasts to f32 at a time
 TILE_N, TILE_K = 256, 64          # a weight tile of the wgmma design: [256 out, 64 in]
 _WGMMA_ROWS = {256: 128, 1024: 64}   # point rows of a CTA of the wgmma design, by width
+TF32_K = 32           # k of a weight tile of the 3xTF32 design: one 128-byte row of f32
+TF32_ROWS = 128       # point rows of a CTA tile of the 3xTF32 design
+_TF32_CHUNK_BYTES = 1 << 28   # bytes of one [chunk rows, W] f32 activation of its scratch
 
 
 class FusedParams(NamedTuple):
@@ -69,14 +89,16 @@ class FusedParams(NamedTuple):
     w_out: torch.Tensor     # [W + W/2, 4] compute dtype: alpha (rows :W -> col 3)
                             # and rgb (rows W: -> cols 0..2), the fused output head
     b_out: torch.Tensor     # [4] f32
-    w_tiles: torch.Tensor   # [tiles, 256, 64] compute dtype: w_pts, w_stack and w_view
-                            # once more as the wgmma design's stream (`tile_weights`);
-                            # no tiles where `uses_wgmma` is false
+    w_tiles: torch.Tensor   # w_pts, w_stack and w_view once more as the design's stream:
+                            # [tiles, 256, 64] compute dtype for the wgmma design
+                            # (`tile_weights`), [tiles, 2, BN, 32] f32 for the 3xTF32
+                            # design (`tile_weights_tf32`), no tiles for the mma.sync one
 
 
 def _plan_len(cfg: FieldConfig) -> int:
-    # xyz hidden + 2 trunks of (L0 + skip mid + skip pair (2) + post)
-    per_trunk = 1 + cfg.skip + 2 + (cfg.depth - cfg.skip - 2)
+    # xyz hidden + 2 trunks of (L0 + skip mid + skip pair (2) + post); a trunk has
+    # range(depth - skip - 2) post layers, none when that is negative
+    per_trunk = 1 + cfg.skip + 2 + max(0, cfg.depth - cfg.skip - 2)
     return cfg.xyz_depth + 2 * per_trunk
 
 
@@ -84,18 +106,42 @@ def _padded_pe(cfg: FieldConfig) -> int:
     return -(-cfg.pts_embed_dim // _K_ALIGN) * _K_ALIGN
 
 
+def kernel_config(cfg: FieldConfig) -> FieldConfig:
+    """The config the kernel runs for the field `cfg`: the depth lifted to
+    skip + 2 (a trunk with no post layers has that layer plan) and the width
+    raised to the smallest multiple of 64 that holds the padded embedding.
+    The field's weights are zero-padded to it (`pack_fused_params`)."""
+    width = -(-max(cfg.width, _padded_pe(cfg)) // 64) * 64
+    depth = max(cfg.depth, cfg.skip + 2)
+    if (width, depth) == (cfg.width, cfg.depth):
+        return cfg
+    return dataclasses.replace(cfg, width=width, depth=depth)
+
+
+def _pad(t: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """`t` cast to `dtype` in the leading corner of zeros of `shape`."""
+    t = t.to(dtype)
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
 def pack_fused_params(params: Params, cond: Params, cfg: FieldConfig) -> FusedParams:
-    """Field params + folded conditioning -> the kernel's operand set. This
-    casts the whole weight stack; do it once a frame, not once a packet."""
-    W, W2, pe = cfg.width, cfg.width // 2, cfg.pts_embed_dim
+    """Field params + folded conditioning -> the kernel's operand set, padded
+    with zeros to `kernel_config(cfg)`. This casts the whole weight stack; do it
+    once a frame, not once a packet."""
+    kcfg = kernel_config(cfg)
+    W, W2, w2 = kcfg.width, kcfg.width // 2, cfg.width // 2
     dt, f32 = cfg.compute_dtype, torch.float32
     x, s, v = params["xyz"], params["sigma"], params["view"]
     dev = x["w_pts"].device
     ws, bs = [], []
 
     def push(w, b):
-        ws.append(w.to(dt))
-        bs.append(b.to(f32))
+        ws.append(_pad(w, (W, W), dt))
+        bs.append(_pad(b, (W,), f32))
 
     for layer in x["layers"]:
         push(layer["w"], layer["b"])
@@ -112,28 +158,29 @@ def pack_fused_params(params: Params, cond: Params, cfg: FieldConfig) -> FusedPa
 
     push_trunk(s, cond["sigma_b0"], cond["sigma_bskip"])
     push_trunk(params["rgb"], cond["rgb_b0"], cond["rgb_bskip"])
-    if len(ws) != _plan_len(cfg):
+    if len(ws) != _plan_len(kcfg):
         raise ValueError(f"param tree has {len(ws)} hidden layers, the config's plan "
-                         f"{_plan_len(cfg)}")
+                         f"{_plan_len(kcfg)}")
 
-    w_pts = torch.zeros((_padded_pe(cfg), W), dtype=dt, device=dev)
-    w_pts[:pe] = x["w_pts"].to(dt)
+    w_pts = _pad(x["w_pts"], (_padded_pe(cfg), W), dt)
     # out[:, 0:3] = rgb from the view features, out[:, 3] = sigma from sigma_feat
     w_out = torch.zeros((W + W2, 4), dtype=dt, device=dev)
-    w_out[:W, 3:4] = s["alpha"]["w"].to(dt)
-    w_out[W:, 0:3] = v["rgb"]["w"].to(dt)
+    w_out[:cfg.width, 3:4] = s["alpha"]["w"].to(dt)
+    w_out[W:W + w2, 0:3] = v["rgb"]["w"].to(dt)
     b_out = torch.cat([v["rgb"]["b"], s["alpha"]["b"]]).to(f32)
-    w_stack, w_view = torch.stack(ws).contiguous(), v["w_feat"].to(dt).contiguous()
+    w_stack = torch.stack(ws).contiguous()
+    w_view = _pad(v["w_feat"], (W, W2), dt).contiguous()
     return FusedParams(
         w_stack, torch.stack(bs).contiguous(), w_pts,
-        cond["xyz_b"].to(f32).contiguous(), w_view,
-        v["b"].to(f32).contiguous(), w_out, b_out.contiguous(),
-        tile_weights(w_pts, w_stack, w_view, cfg))
+        _pad(cond["xyz_b"], (W,), f32).contiguous(), w_view,
+        _pad(v["b"], (W2,), f32).contiguous(), w_out, b_out.contiguous(),
+        tile_weights(w_pts, w_stack, w_view, kcfg))
 
 
 def _cond_rows(cfg: FieldConfig) -> Dict[str, int]:
     """Rows of `b_stack` that carry a folded conditioning bias: each trunk's L0
     and the second half of its skip pair."""
+    cfg = kernel_config(cfg)
     sigma, rgb = cfg.xyz_depth, cfg.xyz_depth + cfg.depth + 1
     return {"sigma_b0": sigma, "sigma_bskip": sigma + cfg.skip + 2,
             "rgb_b0": rgb, "rgb_bskip": rgb + cfg.skip + 2}
@@ -146,17 +193,24 @@ def rebias_fused_params(fused: FusedParams, cond: Params, cfg: FieldConfig) -> F
     conditioning every step)."""
     b_stack = fused.b_stack.clone()
     for key, row in _cond_rows(cfg).items():
-        b_stack[row] = cond[key]
-    return fused._replace(b_stack=b_stack,
-                          b_pts=cond["xyz_b"].to(torch.float32).contiguous())
+        b_stack[row, :cfg.width] = cond[key]
+    b_pts = _pad(cond["xyz_b"], fused.b_pts.shape, torch.float32).contiguous()
+    return fused._replace(b_stack=b_stack, b_pts=b_pts)
 
 
 def uses_wgmma(cfg: FieldConfig) -> bool:
     """Whether the CUDA entry point runs the wgmma design for `cfg`: bf16 at
-    the teacher's two widths, with an embedding that fits one 64-deep tile
-    (csrc/field_kernel.cu::uses_wgmma states the same rule)."""
+    the teacher's two widths (of the kernel's config), with an embedding that
+    fits one 64-deep tile (csrc/field_kernel.cu::uses_wgmma states the same rule)."""
+    cfg = kernel_config(cfg)
     return (cfg.compute_dtype == torch.bfloat16 and cfg.width in _WGMMA_ROWS
             and cfg.pts_embed_dim <= TILE_K)
+
+
+def uses_tf32(cfg: FieldConfig) -> bool:
+    """Whether the CUDA entry point runs the 3xTF32 design for `cfg`: f32 at
+    every width (csrc/field_kernel.cu picks it for dtype 0)."""
+    return cfg.compute_dtype == torch.float32
 
 
 def product_layers(cfg: FieldConfig) -> list:
@@ -164,6 +218,7 @@ def product_layers(cfg: FieldConfig) -> list:
     them. A trunk starts with the first half of its skip pair (saved @ W,
     taken while the running activation still is the saved one; the sum waits
     in f32), then L0, the mid layers, the pair's second half, the post layers."""
+    cfg = kernel_config(cfg)
     order = list(range(cfg.xyz_depth))
     for trunk in range(2):
         base = cfg.xyz_depth + trunk * (cfg.depth + 1)
@@ -183,6 +238,7 @@ def stream_plan(cfg: FieldConfig) -> list:
     a time, so a product runs in rounds over k: column tiles 0 and 1 in the
     first, 2 and 3 in the second; its tiles run round, k block, tile of the
     pair."""
+    cfg = kernel_config(cfg)
     W, W2 = cfg.width, cfg.width // 2
     pair = 2 if W > TILE_N else 1
 
@@ -198,14 +254,14 @@ def stream_plan(cfg: FieldConfig) -> list:
 
 
 def _swizzle(tiles: torch.Tensor) -> torch.Tensor:
-    """[..., n, 64] (n a multiple of 8) -> the same rows with the 16-byte
-    chunk c (8 elements of k) of row r moved to chunk c ^ (r % 8): the
+    """[..., n, 128 bytes] (64 bf16 or 32 f32; n a multiple of 8) -> the same
+    rows with the 16-byte chunk c of row r moved to chunk c ^ (r % 8): the
     128-byte swizzle. Its own inverse."""
-    n = tiles.shape[-2]
+    n, k = tiles.shape[-2:]
     rows = torch.arange(n, device=tiles.device)
-    chunk = torch.arange(TILE_K // 8, device=tiles.device)
+    chunk = torch.arange(8, device=tiles.device)
     src = chunk[None, :] ^ (rows[:, None] & 7)                     # [n, 8]
-    t = tiles.reshape(-1, n, TILE_K // 8, 8)
+    t = tiles.reshape(-1, n, 8, k // 8)
     return t[:, rows[:, None], src].reshape(tiles.shape)
 
 
@@ -221,8 +277,12 @@ def _to_tiles(w: torch.Tensor, pair: int) -> torch.Tensor:
 def tile_weights(w_pts: torch.Tensor, w_stack: torch.Tensor, w_view: torch.Tensor,
                  cfg: FieldConfig) -> torch.Tensor:
     """The wgmma design's weight stream `[tiles, 256, 64]` for `cfg` (see
-    `stream_plan`); no tiles where `uses_wgmma(cfg)` is false. A copy of every
-    weight: made once a `pack_fused_params`, never once a packet."""
+    `stream_plan`), the 3xTF32 design's `[tiles, 2, BN, 32]` where
+    `uses_tf32(cfg)` (`tile_weights_tf32`), no tiles for the mma.sync design.
+    A copy of every weight: made once a `pack_fused_params`, never once a packet."""
+    cfg = kernel_config(cfg)
+    if uses_tf32(cfg):
+        return tile_weights_tf32(w_pts, w_stack, w_view, cfg)
     if not uses_wgmma(cfg):
         return w_stack.new_zeros((0, TILE_N, TILE_K))
     W, W2 = cfg.width, cfg.width // 2
@@ -240,6 +300,7 @@ def tile_weights(w_pts: torch.Tensor, w_stack: torch.Tensor, w_view: torch.Tenso
 def untile_weights(w_tiles: torch.Tensor, cfg: FieldConfig):
     """Inverse of `tile_weights`: (w_pts [64, W], w_stack [L, W, W], w_view
     [W, W/2]) from the stream (the padding dropped, but for w_pts' rows)."""
+    cfg = kernel_config(cfg)
     W, W2 = cfg.width, cfg.width // 2
     tiles = _swizzle(w_tiles)
     w_pts = w_tiles.new_zeros((TILE_K, W))
@@ -256,25 +317,133 @@ def wgmma_block_rows(cfg: FieldConfig) -> int:
     """Point rows of one CTA of the wgmma design, which share one read of the
     weight stream: what the running `[rows, W]` activation and a ring of 32 KB
     tiles leave room for in 227 KB of shared memory."""
-    return _WGMMA_ROWS[cfg.width]
+    return _WGMMA_ROWS[kernel_config(cfg).width]
+
+
+# ---- the 3xTF32 design (f32)
+
+def tf32_cols(cfg: FieldConfig) -> int:
+    """BN, the output columns of a CTA tile and of a weight tile of the 3xTF32
+    design: 128, or 64 at the widths 128 does not divide."""
+    return 128 if kernel_config(cfg).width % 128 == 0 else 64
+
+
+def tf32_plan(cfg: FieldConfig) -> list:
+    """The products of the 3xTF32 design in launch order, one launch each:
+    `(pieces, n_cols)`, where `pieces` lists the `(operand, layer)` blocks of
+    the product's weights stacked over k -- `w_pts` (rows zero-padded to 32),
+    `w_stack[layer]`, `w_view` -- and `n_cols` its output columns. The skip
+    pair is one product over k = 2W: `[saved, h] @ [W_a; W_b]`."""
+    cfg = kernel_config(cfg)
+    W = cfg.width
+    plan = [([("w_pts", None)], W)]
+    plan += [([("w_stack", li)], W) for li in range(cfg.xyz_depth)]
+    for trunk in range(2):
+        base = cfg.xyz_depth + trunk * (cfg.depth + 1)
+        plan += [([("w_stack", li)], W) for li in range(base, base + cfg.skip + 1)]
+        plan.append(([("w_stack", base + cfg.skip + 1), ("w_stack", base + cfg.skip + 2)], W))
+        plan += [([("w_stack", li)], W)
+                 for li in range(base + cfg.skip + 3, base + cfg.depth + 1)]
+    return plan + [([("w_view", None)], W // 2)]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 fraction bits), ties away from zero,
+    as `cvt.rna.tf32.f32` rounds: the low 13 bits of the result are zero."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi). hi + lo is x within 2^-22 of
+    |x|, and lo @ hi + hi @ lo + hi @ hi is an f32 product in three TF32 ones."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.to(torch.float32) - hi)
+
+
+def _tf32_pieces(w_pts, w_stack, w_view, pieces, cfg: FieldConfig) -> torch.Tensor:
+    """The [K, N] weights of one product of `tf32_plan`, zero-padded: k to a
+    multiple of 32, N to one of BN."""
+    bn = tf32_cols(cfg)
+    mats = []
+    for operand, layer in pieces:
+        w = {"w_pts": w_pts, "w_view": w_view}.get(operand)
+        mats.append(w_stack[layer] if w is None else w)
+    w = torch.cat(mats)
+    k, n = w.shape
+    return _pad(w, (-(-k // TF32_K) * TF32_K, -(-n // bn) * bn), torch.float32)
+
+
+def tile_weights_tf32(w_pts: torch.Tensor, w_stack: torch.Tensor, w_view: torch.Tensor,
+                      cfg: FieldConfig) -> torch.Tensor:
+    """The 3xTF32 design's weight stream `[tiles, 2, BN, 32]` f32: for each
+    product of `tf32_plan`, column tile by column tile, k block by k block, the
+    `[32 k, BN]` slice transposed to `[BN, 32]` (K-major: wgmma takes TF32
+    operands in no other order), split into its high (`[t, 0]`) and low
+    (`[t, 1]`) TF32 parts and swizzled, so that a stage of the kernel's ring is
+    one contiguous copy."""
+    cfg = kernel_config(cfg)
+    bn = tf32_cols(cfg)
+    tiles = []
+    for pieces, _ in tf32_plan(cfg):
+        w = _tf32_pieces(w_pts, w_stack, w_view, pieces, cfg)
+        k, n = w.shape
+        t = w.reshape(k // TF32_K, TF32_K, n // bn, bn).permute(2, 0, 3, 1)
+        tiles.append(torch.stack(tf32_split(t.reshape(-1, bn, TF32_K)), dim=1))
+    return _swizzle(torch.cat(tiles)).contiguous()
+
+
+def untile_weights_tf32(w_tiles: torch.Tensor, cfg: FieldConfig) -> list:
+    """Inverse of `tile_weights_tf32`: for each product of `tf32_plan`, its
+    padded `[K, N]` weights as (hi, lo)."""
+    cfg = kernel_config(cfg)
+    bn, W = tf32_cols(cfg), cfg.width
+    tiles, at, out = _swizzle(w_tiles), 0, []
+    for pieces, n_cols in tf32_plan(cfg):
+        k = -(-sum(_padded_pe(cfg) if op == "w_pts" else W for op, _ in pieces) // TF32_K)
+        n = -(-n_cols // bn)
+        t = tiles[at:at + n * k].reshape(n, k, 2, bn, TF32_K)
+        at += n * k
+        w = t.permute(2, 1, 4, 0, 3).reshape(2, k * TF32_K, n * bn)
+        out.append((w[0], w[1]))
+    if at != w_tiles.shape[0]:
+        raise ValueError(f"the stream holds {w_tiles.shape[0]} tiles, the plan {at}")
+    return out
+
+
+def tf32_scratch(cfg: FieldConfig, n_rows: int) -> tuple:
+    """(rows of a chunk, f32 elements of the scratch) of the 3xTF32 design for
+    `n_rows` points: it runs a chunk of rows through one layer at a time, so it
+    keeps the chunk's embedded points (k padded to 32) and three `[rows, W]`
+    activations in device memory -- the running one, the one it writes, and
+    the saved xyz_code or sigma_feat of the skip pair and the alpha head -- in
+    tiles of `TF32_ROWS` rows. A chunk is at most 256 MB an activation."""
+    cfg = kernel_config(cfg)
+    W, kp = cfg.width, -(-cfg.pts_embed_dim // TF32_K) * TF32_K
+    most = max(TF32_ROWS, _TF32_CHUNK_BYTES // (W * 4) // TF32_ROWS * TF32_ROWS)
+    rows = min(most, max(TF32_ROWS, -(-n_rows // TF32_ROWS) * TF32_ROWS))
+    return rows, rows * (kp + 3 * W)
 
 
 def wgmma_scratch(cfg: FieldConfig, n_sms: int) -> tuple:
     """(most CTAs the wgmma design launches on a card of `n_sms` SMs, f32
     elements of its scratch): a CTA is persistent, one an SM, and parks the
     f32 sums of a skip pair's first half for its `[rows, W]` block."""
-    return n_sms, n_sms * wgmma_block_rows(cfg) * cfg.width
+    return n_sms, n_sms * wgmma_block_rows(cfg) * kernel_config(cfg).width
 
 
-def _ref_rows(fused: FusedParams, x, dirf_rows, cfg: FieldConfig):
+def _ref_rows(fused: FusedParams, x, dirf_rows, cfg: FieldConfig, layer_mm=None):
     """The kernel's math on a block of rows: x [n, pe] f32, dirf_rows
-    [n, W/2] f32 -> [n, 4] f32."""
+    [n, W/2] f32 -> [n, 4] f32, for the kernel's config `cfg`. `layer_mm(a, w)`,
+    if given, takes the place of the products of the layers (not the heads')."""
     dt, f32 = cfg.compute_dtype, torch.float32
     W, pe = cfg.width, cfg.pts_embed_dim
 
     def mm(a, w):
         # operands rounded to the compute dtype, products summed in f32
         return a.to(dt).to(f32) @ w.to(f32)
+
+    head_mm, mm = mm, layer_mm or mm
 
     def dense(h, l):
         return F.relu(mm(h, fused.w_stack[l]) + fused.b_stack[l]).to(dt)
@@ -303,22 +472,29 @@ def _ref_rows(fused: FusedParams, x, dirf_rows, cfg: FieldConfig):
     rgb_feat, li = trunk(sigma_feat, li)
     pre = mm(rgb_feat, fused.w_view) + fused.b_view
     view = F.relu(pre + dirf_rows).to(dt)
-    return mm(sigma_feat, fused.w_out[:W]) + mm(view, fused.w_out[W:]) + fused.b_out
+    return head_mm(sigma_feat, fused.w_out[:W]) + head_mm(view, fused.w_out[W:]) + fused.b_out
 
 
 def fused_field_apply_ref(fused: FusedParams, pts_embed: torch.Tensor,
                           dir_feat: torch.Tensor, cfg: FieldConfig,
                           samples_per_ray: int):
     """Plain PyTorch version of the fused kernel, on any device: (raw_rgb
-    [N, 3], raw_sigma [N, 1]) in f32. Rows go through in chunks, so the f32
-    upcast of a [rows, W] activation stays small at packet sizes."""
+    [N, 3], raw_sigma [N, 1]) in f32, on the operands padded to
+    `kernel_config(cfg)` as the kernel reads them. Rows go through in chunks,
+    so the f32 upcast of a [rows, W] activation stays small at packet sizes."""
+    return _ref_apply(fused, pts_embed, dir_feat, cfg, samples_per_ray)
+
+
+def _ref_apply(fused, pts_embed, dir_feat, cfg, samples_per_ray, layer_mm=None):
     N = pts_embed.shape[0]
-    dirf = dir_feat.to(torch.float32)
+    kcfg = kernel_config(cfg)
+    dirf = _pad(dir_feat, (dir_feat.shape[0], kcfg.width // 2), torch.float32)
     outs = []
     for r0 in range(0, N, _REF_CHUNK):
         r1 = min(r0 + _REF_CHUNK, N)
         ray = torch.arange(r0, r1, device=pts_embed.device) // samples_per_ray
-        outs.append(_ref_rows(fused, pts_embed[r0:r1].to(torch.float32), dirf[ray], cfg))
+        outs.append(_ref_rows(fused, pts_embed[r0:r1].to(torch.float32), dirf[ray], kcfg,
+                              layer_mm))
     out = torch.cat(outs) if outs else pts_embed.new_zeros((0, 4), dtype=torch.float32)
     return out[:, 0:3], out[:, 3:4]
 
@@ -328,25 +504,32 @@ def _check_config(cfg: FieldConfig) -> None:
         raise ValueError("the fused field kernel takes a FieldConfig")
     if cfg.compute_dtype not in _DTYPE_CODE:
         raise ValueError(f"compute dtype {cfg.compute_dtype} is not float32 or bfloat16")
-    if cfg.width % 64 or not 64 <= cfg.width <= _MAX_WIDTH:
-        raise ValueError(f"the kernel takes widths that are multiples of 64 up to "
-                         f"{_MAX_WIDTH}, got {cfg.width}")
-    if cfg.skip < 0 or cfg.depth < cfg.skip + 2 or cfg.xyz_depth < 0:
-        raise ValueError(f"the kernel needs depth >= skip + 2, skip >= 0 and "
-                         f"xyz_depth >= 0; got depth={cfg.depth}, skip={cfg.skip}, "
-                         f"xyz_depth={cfg.xyz_depth}")
-    if _padded_pe(cfg) > cfg.width:
-        raise ValueError(f"the embedding ({cfg.pts_embed_dim} dims) is wider than the "
-                         f"field ({cfg.width})")
+    width = kernel_config(cfg).width
+    if width > _MAX_WIDTH:
+        raise ValueError(f"the kernel takes widths up to {_MAX_WIDTH} (the field's, or its "
+                         f"embedding's, rounded up to a multiple of 64), got {width} for "
+                         f"width {cfg.width} and a {cfg.pts_embed_dim}-dim embedding")
+
+
+def _stream_shape(cfg: FieldConfig) -> tuple:
+    """Shape of `FusedParams.w_tiles` for the kernel's config `cfg`."""
+    if uses_tf32(cfg):
+        bn = tf32_cols(cfg)
+        n = sum(-(-(_padded_pe(cfg) if pieces[0][0] == "w_pts" else len(pieces) * cfg.width)
+                  // TF32_K) * -(-n_cols // bn) for pieces, n_cols in tf32_plan(cfg))
+        return (n, 2, bn, TF32_K)
+    return (len(stream_plan(cfg)) if uses_wgmma(cfg) else 0, TILE_N, TILE_K)
 
 
 def _operand_shapes(cfg: FieldConfig, n_rows: int, n_rays: int) -> Dict[str, tuple]:
-    W, W2, L = cfg.width, cfg.width // 2, _plan_len(cfg)
-    return {"pts_embed": (n_rows, cfg.pts_embed_dim), "dir_feat": (n_rays, W2),
-            "w_stack": (L, W, W), "b_stack": (L, W), "w_pts": (_padded_pe(cfg), W),
+    """What the wrapper takes for the field `cfg`: the points and view features
+    at the field's width, the packed operands at the kernel's."""
+    kcfg = kernel_config(cfg)
+    W, W2, L = kcfg.width, kcfg.width // 2, _plan_len(kcfg)
+    return {"pts_embed": (n_rows, cfg.pts_embed_dim), "dir_feat": (n_rays, cfg.width // 2),
+            "w_stack": (L, W, W), "b_stack": (L, W), "w_pts": (_padded_pe(kcfg), W),
             "b_pts": (W,), "w_view": (W, W2), "b_view": (W2,),
-            "w_out": (W + W2, 4), "b_out": (4,),
-            "w_tiles": (len(stream_plan(cfg)) if uses_wgmma(cfg) else 0, TILE_N, TILE_K)}
+            "w_out": (W + W2, 4), "b_out": (4,), "w_tiles": _stream_shape(kcfg)}
 
 
 _COMPUTE_DTYPE_OPERANDS = ("w_stack", "w_pts", "w_view", "w_out", "w_tiles")
@@ -381,7 +564,7 @@ def _lib():
     lib = load("field_kernel")
     lib.field_apply.restype = ctypes.c_int
     lib.field_apply.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
-                                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     for fn in (lib.field_block_rows, lib.field_uses_wgmma):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 3
@@ -390,20 +573,23 @@ def _lib():
 
 def block_rows(cfg: FieldConfig) -> int:
     """Point rows that share one read of the weights in the CUDA kernel for
-    `cfg`: a CTA's rows (each CTA streams the whole weight stack once a row
-    block), which sets the kernel's weight traffic. Asked of the built
-    library; for the wgmma design `wgmma_block_rows` reckons the same here."""
+    `cfg`: a CTA's rows (the fused designs stream the whole weight stack once
+    a row block, the 3xTF32 design a layer's column tile once a CTA tile),
+    which sets the kernel's weight traffic. Asked of the built library;
+    `wgmma_block_rows` and `TF32_ROWS` reckon the same here."""
     _check_config(cfg)
-    rows = _lib().field_block_rows(_DTYPE_CODE[cfg.compute_dtype], cfg.width,
+    kcfg = kernel_config(cfg)
+    rows = _lib().field_block_rows(_DTYPE_CODE[cfg.compute_dtype], kcfg.width,
                                    cfg.pts_embed_dim)
     if rows <= 0:
-        raise ValueError(f"the kernel does not take width {cfg.width}")
+        raise ValueError(f"the kernel does not take width {kcfg.width}")
     return rows
 
 
 def _field_cuda(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
                 samples_per_ray: int) -> torch.Tensor:
-    """Launch the CUDA kernel on checked operands: [N, 4] f32 (rgb, sigma)."""
+    """Launch the CUDA kernel on checked operands of the kernel's config `cfg`
+    (`dir_feat` padded to it): [N, 4] f32 (rgb, sigma)."""
     global launch_count
     dev = pts_embed.device
     n_rows = pts_embed.shape[0]
@@ -413,11 +599,13 @@ def _field_cuda(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
     if bool(lib.field_uses_wgmma(code, cfg.width, cfg.pts_embed_dim)) != uses_wgmma(cfg):
         raise RuntimeError("the built library and ops/field_kernel.py disagree on the design "
                            f"for width {cfg.width}, {cfg.compute_dtype}")
-    max_ctas, scratch = 0, None
+    max_ctas, chunk, n_scratch = 0, 0, 0
     if uses_wgmma(cfg):
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         max_ctas, n_scratch = wgmma_scratch(cfg, n_sms)
-        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    elif uses_tf32(cfg):
+        chunk, n_scratch = tf32_scratch(cfg, n_rows)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.field_apply(
@@ -427,7 +615,7 @@ def _field_cuda(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
             fused.w_out.data_ptr(), fused.b_out.data_ptr(), fused.w_tiles.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             n_rows, samples_per_ray, cfg.pts_embed_dim, cfg.width, cfg.depth,
-            cfg.skip, cfg.xyz_depth, max_ctas, stream)
+            cfg.skip, cfg.xyz_depth, max_ctas, chunk, stream)
     if err != 0:
         raise RuntimeError(f"field_apply kernel launch failed: cudaError {err}")
     if n_rows:
@@ -439,7 +627,8 @@ def fused_field_apply(fused: FusedParams, pts_embed: torch.Tensor, dir_feat: tor
                       cfg: FieldConfig, samples_per_ray: int):
     """(raw_rgb [N, 3], raw_sigma [N, 1]) in f32 for N = R * samples_per_ray
     embedded points `pts_embed` [N, pe] (f32) and per-ray view features
-    `dir_feat` [R, W/2] (f32): the contract of apply_field_folded.
+    `dir_feat` [R, W/2] (f32): the contract of apply_field_folded, for any
+    field it takes (the operands padded to `kernel_config(cfg)`).
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
     kernel (and raise if it cannot run); other devices raise."""
@@ -454,5 +643,7 @@ def fused_field_apply(fused: FusedParams, pts_embed: torch.Tensor, dir_feat: tor
         raise ValueError("an operand requires grad: the fused kernel is inference only; "
                          "call it under torch.no_grad(), or differentiate "
                          "models/field.py::apply_field_folded")
-    out = _field_cuda(fused, pts_embed, dir_feat, cfg, samples_per_ray)
+    kcfg = kernel_config(cfg)
+    dirf = _pad(dir_feat, (dir_feat.shape[0], kcfg.width // 2), torch.float32).contiguous()
+    out = _field_cuda(fused, pts_embed, dirf, kcfg, samples_per_ray)
     return out[:, 0:3], out[:, 3:4]

@@ -157,11 +157,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     fused = fk.pack_fused_params(tp, tcond, tcfg)
     pe, dirf = torch.zeros((12, 63)), torch.zeros((4, 32))
     fk.fused_field_apply(fused, pe, dirf, tcfg, 3)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=96), 3)
-    with pytest.raises(ValueError, match="multiples of 64"):
+    # any width the wrapper can pad to a multiple of 64 up to 1024 is taken (the operands
+    # must be packed for it); wider ones are refused by name
+    with pytest.raises(ValueError, match="widths up to 1024"):
         fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=2048), 3)
-    with pytest.raises(ValueError, match="depth >= skip"):
+    with pytest.raises(ValueError, match="widths up to 1024"):
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=1025), 3)
+    with pytest.raises(ValueError, match="dir_feat has shape"):   # packed for width 64
+        fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, width=96), 3)
+    with pytest.raises(ValueError, match="w_stack has shape"):   # depth 5 runs depth 6's plan
         fk.fused_field_apply(fused, pe, dirf, dataclasses.replace(tcfg, depth=5), 3)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fk.fused_field_apply(fused, pe, dirf,
@@ -219,11 +223,13 @@ def test_weight_tiles_hold_the_planned_slices_and_round_trip(depth, width):
 
 
 def test_no_weight_tiles_where_the_mma_design_runs():
+    # f32 runs the 3xTF32 design at every width, with its own stream
+    # (tests/test_torch_field_kernel_f32.py)
     for depth, width, dtype in ((8, 64, torch.bfloat16), (8, 512, torch.bfloat16),
-                                (8, 256, torch.float32)):
+                                (2, 16, torch.bfloat16)):
         cfg, fused = _torch_fused(depth, width, dtype)
-        assert not fk.uses_wgmma(cfg) and fused.w_tiles.shape == (0, 256, 64)
-        assert fused.w_tiles.dtype == dtype
+        assert not fk.uses_wgmma(cfg) and not fk.uses_tf32(cfg)
+        assert fused.w_tiles.shape == (0, 256, 64) and fused.w_tiles.dtype == dtype
     # an embedding deeper than one 64-deep tile stays with the mma design too
     wide = tfield.FieldConfig(depth=8, width=256, multires=12, compute_dtype=torch.bfloat16)
     assert wide.pts_embed_dim > 64 and not fk.uses_wgmma(wide)
@@ -329,6 +335,16 @@ def test_scratch_and_row_block_reckoning():
     ("bfloat16", 10, 1024, 21, 127),
     ("bfloat16", 6, 64, 300, 5),      # no post layers, many warp rows
     ("float32", 7, 192, 11, 9),       # a width that is not a power of two
+    ("float32", 8, 64, 37, 7),        # 3xTF32: 64-column tiles, a view layer of 32 columns
+    ("float32", 6, 64, 300, 5),       # no post layers
+    ("float32", 8, 256, 3, 1),        # fewer rows than one row tile, one sample a ray
+    ("float32", 10, 1024, 4096, 1),   # one sample a ray (distillation's queries)
+    ("float32", 8, 256, 2100, 33),    # more row tiles than the card has SMs, ragged
+    ("float32", 10, 1024, 700, 100),  # two row chunks, the second ragged
+    ("float32", 2, 16, 50, 8),        # padded: width 16 -> 64, depth 2 -> skip + 2
+    ("bfloat16", 2, 16, 50, 8),
+    ("float32", 8, 96, 33, 5),        # padded: width 96 -> 128
+    ("bfloat16", 8, 96, 33, 5),
     ("bfloat16", 8, 512, 3, 1),       # fewer rows than one block
     ("bfloat16", 8, 256, 3, 1),       # the wgmma design: fewer rows than one block,
     ("bfloat16", 10, 1024, 1, 50),
@@ -340,8 +356,9 @@ def test_scratch_and_row_block_reckoning():
 ])
 def test_cuda_kernel_matches_plain_version(dtype, depth, width, n_rays, spr):
     """On the card: the hand-written kernel against its plain version. f32
-    differs in sum order only (1e-4 of the output's scale); bf16 is held at
-    atol 5e-3 with contracting weights (x 0.4), as the TPU kernel's test is."""
+    (three TF32 products a product, f32 sums) is held at 1e-4 of the output's
+    scale; bf16 at atol 5e-3 with contracting weights (x 0.4), as the TPU
+    kernel's test is."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda")
