@@ -48,7 +48,10 @@ Phases, each failing loudly:
      and render_path, its seconds and launches; and the JAX package's
      examples' small model (netdepth 2, netwidth 8 / 16, which the kernel
      takes padded to width 64) through the field kernel, f32 and bf16,
-     against its plain version and a frame against the CPU's.
+     against its plain version, timed against it in turns at its 64x64
+     frame's shape (the median of four ~50 ms turns a side) beside the
+     field's own bound (the padded shape's printed beside it), and a frame
+     against the CPU's.
   6. training path: a 512x512 FaceScape-shaped fixture written by the port
      (JPEG UV maps decoded by the port), the run_train CLI at the full width of
      configs/exp_mofanerf.txt keeping its occupancy grid (updated every 4
@@ -117,6 +120,14 @@ Phases, each failing loudly:
      timed; on mesh (data 1, model 2), the fine field in model shards, the
      teacher frame (its weights gathered once a frame) and the f32 train step
      with the fine field tensor-parallel, against the same calls.
+  12. image formats, after the wild-photo phase (formats_phase): every file
+     of mofanerf_tpu_torch/testdata/formats decoded on the host against its
+     manifest (imageio's shape, dtype, SHA-256) and header size; the 1024^2
+     photo's decode, progressive against baseline, in turns; wild_preprocess
+     on the wild phase's photos with the progressive D.jpg beside them, then
+     run_fit on D's relit photo; run_train on the training fixture with the
+     progressive 512^2 UV map for every identity; field kernel launches
+     counted on both paths.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -185,6 +196,8 @@ F32_SIDE = 256
 # package): netdepth 2, netwidth 8 (coarse) and 16 (fine), 8 + 8 samples; its frame's side
 SMALL_FIELDS = {"coarse": (2, 8, 8), "fine": (2, 16, 16)}   # depth, width, samples (fine: union)
 SMALL_SIDE = 64
+SMALL_TURN_MS = 50.0   # CUDA-event time a timed turn of the small model's fields
+SMALL_TURNS = 4   # turns a side (kernel and plain version alternating); the median kept
 # the fitting phase: run_fit's iterations and pose freeze, the initial pose's rotation off
 # the target's, the steady step's warm-ups and timed steps a pyramid level, profiled steps
 FIT_ITERS, FIT_FREEZE, FIT_ROTATION_DEG = 100, 30, 5.0
@@ -200,6 +213,11 @@ WILD_CANVAS, WILD_WARP, WILD_FIT_ITERS, WILD_AB_TOL = (640, 480), (12.0, 0.75), 
 # the device-data phase: steps after the training phase's last checkpoint, steps a chunk,
 # (i_print, i_weights) that the chunk divides neither of, steps a timed turn
 DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
+# the image formats phase: the committed files, run_fit's iterations on D's relit photo,
+# run_train's steps with the progressive UV map, (progressive, baseline) pairs of turns of
+# the 1024^2 photo's decode
+FORMATS_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "formats")
+FORMATS_FIT_ITERS, FORMATS_TRAIN_STEPS, FORMATS_DECODE_TURNS = 10, 2, 2
 
 
 def fail(failures, msg):
@@ -968,7 +986,7 @@ def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
         gen = torch.Generator().manual_seed(17)
         params = init_model_params(gen, sspec, device=dev)
         codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
-        errs = {}
+        errs, timing = {}, {}
         for name in ("coarse", "fine"):
             cfg = getattr(sspec, name)
             fused = fk.pack_fused_params(params[name], fold_conditioning(params[name], *codes),
@@ -994,6 +1012,50 @@ def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
             if not (errs[name] <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
                 fail(failures, f"small model {name} {dt_name}: the kernel disagrees with its "
                                f"plain version")
+            # the path's shape (the SMALL_SIDE^2 frame is one packet): the kernel and its plain
+            # version in turns (kernel, plain, plain, kernel, ...), CUDA events over about
+            # SMALL_TURN_MS a turn, the median turn kept
+            n_rays, ns = SMALL_SIDE ** 2, SMALL_FIELDS[name][2]
+            pe_t, dirf_t = field_inputs(cfg, params[name]["view"]["w_dirs"], n_rays, ns, 29, dev)
+            runs = {"kernel": lambda: fk.fused_field_apply(fused, pe_t, dirf_t, cfg, ns),
+                    "plain": lambda: fk.fused_field_apply_ref(fused, pe_t, dirf_t, cfg, ns)}
+            turns = {"kernel": [], "plain": []}
+            with torch.no_grad():
+                iters = {k: max(10, int(SMALL_TURN_MS / cuda_ms(fn, iters=5, warmup=2)))
+                         for k, fn in runs.items()}
+                for turn in ("kernel", "plain", "plain", "kernel") * (SMALL_TURNS // 2):
+                    turns[turn].append(cuda_ms(runs[turn], iters=iters[turn], warmup=1))
+            # the bound of the function the field computes (its own depth and width, f32
+            # products at the 3xTF32 rate as the full-width rows take them), and beside it
+            # that of the padded shape the kernel runs (kernel_config's depth and width)
+            n_layers, n_rows = fused.w_stack.shape[0], n_rays * ns
+            esize = 2 if dt == torch.bfloat16 else 4
+            bounds = {}
+            for shape_name, c in (("field", cfg), ("padded", kcfg)):
+                ops_count = n_rows * field_flops_per_point(c, n_layers)
+                t_ops = (ops_count / PEAK_BF16 if dt == torch.bfloat16
+                         else 3 * ops_count / PEAK_TF32) * 1e3
+                t_bytes = (field_io_bytes(c, n_rows, n_rays)
+                           + field_weight_bytes(c, n_layers, esize)) / PEAK_BYTES * 1e3
+                bounds[shape_name] = (max(t_ops, t_bytes),
+                                      "operations" if t_ops >= t_bytes else "bytes", t_ops,
+                                      t_bytes)
+            med = {k: float(np.median(v)) for k, v in turns.items()}
+            timing[name] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                            "bound_ms": bounds["field"][0], "bound_by": bounds["field"][1],
+                            "padded_bound_ms": bounds["padded"][0],
+                            "max_abs_err": errs[name], "rays": n_rays, "samples": ns,
+                            "kernel_config": f"{kcfg.depth}x{kcfg.width}", "turns_ms": turns,
+                            "iters_a_turn": iters}
+            print(f"small model {name} {dt_name} at the frame's shape ({n_rays} rays x {ns} "
+                  f"samples) in turns of {iters['kernel']} / {iters['plain']} launches: kernel "
+                  f"{', '.join(f'{v:.4f}' for v in turns['kernel'])} ms (median "
+                  f"{med['kernel']:.4f}), plain {', '.join(f'{v:.4f}' for v in turns['plain'])} "
+                  f"ms (median {med['plain']:.4f}); bound {bounds['field'][0]:.5f} ms by "
+                  f"{bounds['field'][1]} ({cfg.depth}x{cfg.width}: operations "
+                  f"{bounds['field'][2]:.5f} ms, bytes once {bounds['field'][3]:.5f} ms; padded "
+                  f"{kcfg.depth}x{kcfg.width}: {bounds['padded'][0]:.5f} ms by "
+                  f"{bounds['padded'][1]}) on {card}", flush=True)
         with torch.no_grad():
             cond = prepare_conditioning(params, sspec, codes[0], exp_code_for(params, 3), codes[2])
         Ks = np.array([[60.0, 0, SMALL_SIDE / 2], [0, 60.0, SMALL_SIDE / 2], [0, 0, 1]],
@@ -1059,7 +1121,7 @@ def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
                 fail(failures, f"small model {dt_name}: {k} not finite or outside [0, 1]")
         small[dt_name] = {"max_abs_err": max(errs.values()), "frame_err": frame_err,
                           "stochastic_err": st_err, "stochastic_fine_q56": st_q,
-                          "launches": launches}
+                          "launches": launches, "timing": timing}
     out["small_model"] = small
     return out
 
@@ -1608,6 +1670,22 @@ class _Tee:
 
     def text(self):
         return "".join(self.parts)
+
+
+def quiet(call):
+    """call() with its standard output kept, synchronised with the card on
+    both sides: (result, text, seconds)."""
+    import contextlib
+
+    import torch
+
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = call()
+    torch.cuda.synchronize()
+    return result, tee.text(), time.perf_counter() - t0
 
 
 def run_cli(argv, cli=None):
@@ -2692,7 +2770,6 @@ def wild_phase(failures, card, dev, render_flags, tmp):
     at 512^2, each stage's seconds a photo, then run_fit on A's relit photo
     and pose from the training phase's checkpoint, the field kernel counted.
     Returns ({"datagen": ...}, {"preprocess": ...})."""
-    import contextlib
     import json as _json
     import re
     import shutil
@@ -2721,16 +2798,6 @@ def wild_phase(failures, card, dev, render_flags, tmp):
     from mofanerf_tpu_torch.utils.image_io import (imread, lab_to_rgb_u8, resize_linear,
                                                    rgb_to_lab_u8, warp_affine, write_jpeg,
                                                    write_png)
-
-    def quiet(call):
-        """call() with its standard output kept: (result, text, seconds)."""
-        tee = _Tee(sys.stdout)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(tee):
-            result = call()
-        torch.cuda.synchronize()
-        return result, tee.text(), time.perf_counter() - t0
 
     # ---- 1. the synthetic face family at 512^2
     faces = os.path.join(tmp, "faces")
@@ -3043,6 +3110,153 @@ def wild_phase(failures, card, dev, render_flags, tmp):
               "pose_ortho_err": pose_err, "fit_s": fit_sec, "fit_losses": losses,
               "launches": launches, "card": card}
     return out_dg, out_pp
+
+
+def formats_phase(failures, card, dev, render_flags, tmp):
+    """The image formats the JAX package reads, read by the port on the card
+    machine's host, then fed to the card: every committed file of
+    mofanerf_tpu_torch/testdata/formats against its manifest (imageio's shape,
+    dtype and SHA-256, re-derived by tests/test_torch_image_formats.py on the
+    CPU) and its header size; the decode time of a 1024^2 photo, progressive
+    against baseline, in turns; wild_preprocess on the wild phase's photos A-C
+    with the progressive photo D.jpg beside them, then run_fit on D's relit
+    photo; run_train on the training fixture with each identity's UV map
+    replaced by the progressive one, its held-out render counted. Both paths
+    count the field kernel's launches with the count zeroed just before and
+    read just after."""
+    import hashlib
+    import re
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.cli import run_fit, run_train, wild_preprocess
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.utils.image_io import image_size, imread
+
+    def digest(a):   # as the manifest hashes: bool as 0 / 1 bytes
+        a = np.ascontiguousarray(a, np.uint8 if a.dtype == bool else a.dtype)
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    # ---- 1. every committed file against its manifest
+    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    off, decode_ms = [], {}
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(FORMATS_DIR, name)
+        t0 = time.perf_counter()
+        arr = imread(path)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        if [list(arr.shape), str(arr.dtype), digest(arr)] != \
+                [entry["shape"], entry["dtype"], entry["sha256"]] \
+                or list(image_size(path)) != entry["shape"][:2]:
+            off.append(name)
+    print(f"formats: {len(manifest)} committed files (PNG, BMP, progressive and baseline JPEG) "
+          f"decoded on the host against their manifest: {len(manifest) - len(off)} equal by "
+          f"SHA-256, shape, dtype and header size, differing {off}; ms a file "
+          + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items()), flush=True)
+    if off:
+        fail(failures, f"formats: files whose decode differs from the manifest: {off}")
+    # the decode time of the 1024^2 photo, progressive and baseline (both 4:2:0, quality 90,
+    # from one image), in turns
+    photos = {k: os.path.join(FORMATS_DIR, f"photo_1024_{k}.jpg")
+              for k in ("progressive", "baseline")}
+    turns = {"progressive": [], "baseline": []}
+    for k in ("progressive", "baseline", "baseline", "progressive") * FORMATS_DECODE_TURNS:
+        t0 = time.perf_counter()
+        imread(photos[k])
+        turns[k].append((time.perf_counter() - t0) * 1e3)
+    ms_mpx = {k: float(np.median(v)) / (1024 * 1024 / 1e6) for k, v in turns.items()}
+    print(f"formats: decode of the 1024^2 photo on the host, median of "
+          f"{2 * FORMATS_DECODE_TURNS} in turns: progressive {ms_mpx['progressive']:.1f} ms a "
+          f"megapixel, baseline {ms_mpx['baseline']:.1f} ms a megapixel "
+          f"({ms_mpx['progressive'] / ms_mpx['baseline']:.2f}x); all turns (ms) {turns}; "
+          f"host of {card}", flush=True)
+
+    # ---- 2. wild_preprocess with the progressive photo D beside A-C, then run_fit on D
+    wild = os.path.join(tmp, "wild_formats")
+    shutil.copytree(os.path.join(tmp, "wild"), wild, ignore=shutil.ignore_patterns(
+        "raw", "mask", "segRes", "segRelRes", "pose_*", "fitting"))
+    for name in ("D.jpg", "kp_D.npy"):
+        shutil.copy(os.path.join(FORMATS_DIR, name), os.path.join(wild, name))
+    weights = os.path.join(tmp, "wild_weights")
+    flags = ["--filePath", wild, "--landmarks3d", os.path.join(tmp, "faces", "landmarks.npy"),
+             "--bisenet_weights", os.path.join(weights, "Seg_79999_iter.pth"),
+             "--relight_weights", os.path.join(weights, "trained_model_03.t7"),
+             "--canonical_sh", os.path.join(weights, "fcspLight.npy"), "--device", str(dev)]
+    _, _, cli_sec = quiet(lambda: wild_preprocess.main(flags))
+    outs = {sub: sorted(os.listdir(os.path.join(wild, sub)))
+            for sub in ("raw", "mask", "segRes", "segRelRes")}
+    pose_d = np.load(os.path.join(wild, "pose_D.npy"), allow_pickle=True).item()
+    raw = {n: imread(os.path.join(wild, "raw", f"{n}.png")).astype(np.float32) / 255
+           for n in "BD"}
+    inside = (imread(os.path.join(wild, "mask", "B.png")) > 0) & (raw["B"].max(-1) > 0)
+    db_diff = float(np.abs(raw["D"] - raw["B"])[inside].mean()) if inside.any() else float("nan")
+    print(f"formats: wild_preprocess on A-C and the progressive D.jpg: {cli_sec:.2f} s with "
+          f"start-up; outputs {outs}; D's kp {pose_d['kp'].shape}; D (progressive 4:2:0) "
+          f"against B aligned: mean |diff| {db_diff:.4f} over {int(inside.sum())} pixels of "
+          f"B's mask (tol {WILD_AB_TOL})", flush=True)
+    if any(v != ["A.png", "B.png", "C.png", "D.png"] for v in outs.values()):
+        fail(failures, f"formats: wild_preprocess outputs {outs}")
+    if not db_diff <= WILD_AB_TOL or pose_d["kp"].shape != (68, 2):
+        fail(failures, f"formats: D's aligned photo differs from B's by {db_diff}, or its kp "
+                       f"{pose_d['kp'].shape}")
+    cfg = load_config(render_flags)
+    argv = ["--filePath", os.path.join(wild, "segRelRes", "D.png"), "--num_iterations",
+            str(FORMATS_FIT_ITERS), "--pose_freeze_iters", str(FORMATS_FIT_ITERS // 2),
+            "--device", str(dev)] + render_flags
+    want_fit = 2 * n_packets((512 // 2) ** 2, cfg.model_spec().render.packet_size)
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    _, fit_text, fit_sec = quiet(lambda: run_fit.main(argv))
+    fit_launches = fk.launch_count
+    losses = [float(v) for v in re.findall(r"\[FIT\] iter \d+ loss (\S+)", fit_text)]
+    print(f"formats: run_fit on segRelRes/D.png, {FORMATS_FIT_ITERS + 1} steps in "
+          f"{fit_sec:.2f} s with start-up; loss {losses}; field kernel launches {fit_launches} "
+          f"(expected {want_fit})", flush=True)
+    if fit_launches != want_fit or not losses or not np.isfinite(losses).all():
+        fail(failures, f"formats: run_fit on D: {fit_launches} launches (expected {want_fit}), "
+                       f"loss {losses}")
+
+    # ---- 3. run_train with a progressive UV map
+    data = os.path.join(tmp, "data_progressive")
+    shutil.copytree(os.path.join(tmp, "data"), data)
+    uvs = [os.path.join(data, "uv", i, "1_neutral.jpg") for i in ("0", "1")]
+    for uv in uvs:   # both identities', so that every batch and the held-out image read one
+        shutil.copy(os.path.join(FORMATS_DIR, "uv_progressive.jpg"), uv)
+    with open(uvs[1], "rb") as f:
+        progressive = b"\xff\xc2" in f.read()
+    swap = {"--expname": "formats", "--datadir": data, "--uvdir": os.path.join(data, "uv"),
+            "--shape_codes_path": os.path.join(data, "factors_id.npy"),
+            "--landmarks_path": os.path.join(data, "landmarks.npy")}
+    train_flags = [swap.get(render_flags[i - 1], a) if i else a
+                   for i, a in enumerate(render_flags)]
+    n = FORMATS_TRAIN_STEPS
+    train_flags += ["--i_print", "1", "--i_weights", str(10 * n), "--i_testset", str(n),
+                    "--i_video", str(10 * n), "--n_iters", str(n), "--device", str(dev)]
+    want_train = 2 * n_packets((TRAIN_SIDE // 2) ** 2, cfg.model_spec().render.packet_size)
+    torch.cuda.synchronize()
+    fk.launch_count = 0
+    _, _, train_sec = quiet(lambda: run_train.main(train_flags))
+    train_launches = fk.launch_count
+    with open(os.path.join(cfg.basedir, "formats", "train_log.txt")) as f:
+        log = f.read()
+    train_losses = [float(line.split()[3]) for line in log.splitlines()
+                    if line.startswith("Iteration")]
+    print(f"formats: run_train {n} steps with each identity's UV map the progressive 512^2 JPEG "
+          f"(SOF2 {progressive}): {train_sec:.2f} s with start-up; loss {train_losses}; field "
+          f"kernel launches {train_launches} (expected {want_train}: the held-out image)",
+          flush=True)
+    if not progressive or train_launches != want_train or len(train_losses) != n \
+            or not np.isfinite(train_losses).all():
+        fail(failures, f"formats: run_train with the progressive UV map: {train_launches} "
+                       f"launches (expected {want_train}), losses {train_losses}")
+    return {"files": len(manifest), "files_differing": off, "decode_ms": decode_ms,
+            "photo_ms_a_megapixel": ms_mpx, "photo_turns_ms": turns,
+            "wild_cli_s": cli_sec, "d_vs_b_mean_abs_diff": db_diff, "fit_s": fit_sec,
+            "fit_losses": losses, "fit_launches": fit_launches, "train_s": train_sec,
+            "train_losses": train_losses, "train_launches": train_launches, "card": card}
 
 
 def train_step_timing(failures, card, dev, final, cfg, batches):
@@ -3671,6 +3885,11 @@ def main(argv) -> int:
         datagen, wild = wild_phase(failures, card, dev, render_flags, work)
         print(f"path phase (data generation, wild-photo preprocessing, run_fit): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        formats = formats_phase(failures, card, dev, render_flags, work)
+        print(f"path phase (image formats: the committed files, wild_preprocess -> run_fit on "
+              f"a progressive photo, run_train with a progressive UV map): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"convert": converted}), flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
@@ -3678,6 +3897,7 @@ def main(argv) -> int:
     print(json.dumps({"train_device_data": dict(dd, card=card)}), flush=True)
     print(json.dumps({"datagen": datagen}), flush=True)
     print(json.dumps({"preprocess": wild}), flush=True)
+    print(json.dumps({"formats": formats}), flush=True)
     print(json.dumps({"multi_card": dict(multi, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
@@ -3695,6 +3915,8 @@ def main(argv) -> int:
                       "refine_corpus": refined["launches"]["refine_corpus"] // 2,
                       "train_device_data": dd["launches"] // 2,
                       "wild_fit": wild["launches"] // 2,
+                      "formats_fit": formats["fit_launches"] // 2,
+                      "formats_train": formats["train_launches"] // 2,
                       "convert": converted["launches"] // 2,
                       "sharded_teacher": multi["teacher_launches"] // 2}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
@@ -3759,11 +3981,8 @@ def main(argv) -> int:
             "route": "cuda",
             "source": "mofanerf_tpu_torch/csrc/field_kernel_tf32.cuh",
             "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
-            "launches": f32_paths["f32_teacher"]["launches"] // 2 + small_launches["float32"],
-            "launches_by_path": {"f32_teacher": f32_paths["f32_teacher"]["launches"] // 2,
-                                 "small_model_f32": small_launches["float32"]},
-            "max_abs_err": max(row["max_abs_err"],
-                               f32_paths["small_model"]["float32"]["max_abs_err"]),
+            "launches": f32_paths["f32_teacher"]["launches"] // 2,
+            "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -3772,6 +3991,27 @@ def main(argv) -> int:
             "ffma_bound_ms": row["ffma_bound_ms"],
             "block_rows": row["block_rows"],
         })
+    # the examples' small model, padded by the wrapper: bf16 through the mma.sync design,
+    # f32 through the 3xTF32 one, each field once a frame
+    for dt_name, design in (("bfloat16", "field_kernel_mma.cuh"),
+                            ("float32", "field_kernel_tf32.cuh")):
+        for name, (depth, width, _) in SMALL_FIELDS.items():
+            row = f32_paths["small_model"][dt_name]["timing"][name]
+            field_entries.append({
+                "name": f"fused_field_apply[small {name} {depth}x{width} {dt_name}, padded "
+                        f"{row['kernel_config']}, {row['rays']}x{row['samples']}]",
+                "route": "cuda",
+                "source": f"mofanerf_tpu_torch/csrc/{design}",
+                "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
+                "launches": small_launches[dt_name],
+                "max_abs_err": row["max_abs_err"],
+                "ms": row["ms"],
+                "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "padded_bound_ms": row["padded_bound_ms"],
+                "library_ms": None,
+            })
     print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",
         "route": "cuda",

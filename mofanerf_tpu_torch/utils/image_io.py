@@ -1,688 +1,214 @@
 """Image files without imageio, Pillow or OpenCV: the port's counterpart of
-the `imageio.imread` / `imageio.imwrite` / `cv2.resize(INTER_AREA)` calls
-of mofanerf_tpu/data/facescape.py.
+the `imageio.v2.imread` / `imageio.imwrite` / `cv2.resize` / `cv2.warpAffine`
+/ `cv2.cvtColor` calls of the JAX package.
 
-- PNG: 8-bit gray, RGB and RGBA, non-interlaced, read with `zlib` and
-  numpy un-filtering; RGB written unfiltered.
-- JPEG: a baseline (sequential Huffman) decoder for gray and YCbCr at
-  4:4:4, 4:2:2 and 4:2:0, with restart intervals. It follows libjpeg's
-  defaults, which is what `imageio` reads JPEG through (Pillow): the
-  integer "islow" IDCT, "fancy" triangular chroma upsampling and the
-  fixed-point YCbCr -> RGB transform, all in integer arithmetic, vectorised
-  over blocks. The Huffman stage is pure Python. Progressive files raise.
-- A small baseline JPEG encoder (4:4:4, the standard quantisation and
-  Huffman tables of the JPEG specification, Annex K).
+- `imread` returns, for every PNG, JPEG and BMP that the JAX package's
+  readers take, what `imageio.v2.imread` returns: the same shape, dtype and
+  values (PNG and BMP exactly; JPEG bit for bit with libjpeg-turbo's islow
+  IDCT, fancy upsampling and colour transform). The decoders: `png.py`
+  (every colour type and depth, tRNS, Adam7), `jpeg.py` (baseline,
+  extended, progressive and lossless Huffman frames, any sampling factors,
+  CMYK and YCCK) and `read_bmp` below. `image_size` reads (H, W) from the
+  header of each, decoding no pixel data.
+- `write_png` (8-bit gray, RGB, RGBA) and `write_jpeg` (baseline 4:4:4).
 - `resize_area`: `cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`
   for float images, area-weighted when shrinking, OpenCV's INTER_AREA
   coefficients when enlarging.
 - `resize_linear`: `cv2.resize(img, (w, h))` at its default INTER_LINEAR for
   float images: two taps an axis, no antialiasing.
-- BMP: uncompressed 24- and 32-bit and 8-bit paletted files, bottom-up or
-  top-down, read as Pillow reads them.
 - On tensors, on whichever device they lie: `warp_affine`
   (`cv2.warpAffine(img, M, size, flags=INTER_LINEAR)` on float32 images, with
-  a constant border of 0, in cv2's float32 arithmetic) and `rgb_to_lab_u8` / `lab_to_rgb_u8` (cv2's 8-bit
-  `COLOR_RGB2LAB` / `COLOR_LAB2RGB`, byte for byte).
+  a constant border of 0, in cv2's float32 arithmetic) and `rgb_to_lab_u8` /
+  `lab_to_rgb_u8` (cv2's 8-bit `COLOR_RGB2LAB` / `COLOR_LAB2RGB`, byte for
+  byte).
 """
 from __future__ import annotations
 
 import functools
 import struct
-import zlib
-from array import array
 
 import numpy as np
 import torch
 
-PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from .jpeg import jpeg_size, read_jpeg, write_jpeg  # noqa: F401  (re-exported)
+from .png import PNG_SIGNATURE, png_size, read_png, unpack_samples, write_png  # noqa: F401
 
 # ---------------------------------------------------------------------------
-# PNG
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write a uint8 image as a PNG (standard library only): [H, W] gray,
-    [H, W, 3] RGB or [H, W, 4] RGBA."""
-    h, w = img.shape[:2]
-    color = {1: 0, 3: 2, 4: 6}[1 if img.ndim == 2 else img.shape[2]]
-    raw = b"".join(b"\x00" + np.ascontiguousarray(img[i]).tobytes() for i in range(h))
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE)
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_png_chunk(b"IEND", b""))
-
-
-_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}   # color type -> channels (gray, RGB, RGBA)
-
-
-def _unfilter_sequential(kind: int, line: bytearray, prev: bytes, bpp: int) -> None:
-    """Average (3) and Paeth (4) rows, in place: each byte needs the one
-    decoded bpp bytes to its left."""
-    for x in range(len(line)):
-        a = line[x - bpp] if x >= bpp else 0
-        b = prev[x]
-        if kind == 3:
-            line[x] = (line[x] + ((a + b) >> 1)) & 0xFF
-        else:
-            c = prev[x - bpp] if x >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-            line[x] = (line[x] + pred) & 0xFF
-
-
-def read_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 [H, W] (gray), [H, W, 3] (RGB) or [H, W, 4] (RGBA)."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError("not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if header is None:
-        raise ValueError("PNG without IHDR")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS:
-        raise ValueError(f"PNG of bit depth {depth}, color type {color}: only 8-bit gray, "
-                         "RGB and RGBA are read")
-    if interlace:
-        raise ValueError("interlaced PNG is not read")
-    bpp = _PNG_CHANNELS[color]
-    stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (stride + 1):
-        raise ValueError("PNG image data is truncated")
-    rows = np.frombuffer(raw, np.uint8)[:h * (stride + 1)].reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            out[y] = line
-        elif kind == 1:     # Sub: a running sum over the pixels, per channel, mod 256
-            out[y] = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:     # Up
-            out[y] = line + prev
-        elif kind in (3, 4):
-            buf = bytearray(line.tobytes())
-            _unfilter_sequential(kind, buf, prev.tobytes(), bpp)
-            out[y] = np.frombuffer(bytes(buf), np.uint8)
-        else:
-            raise ValueError(f"PNG row filter {kind} is not one of 0-4")
-        prev = out[y]
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
-
-
-# ---------------------------------------------------------------------------
-# JPEG: tables
-
-ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
-
-# Annex K.1 quantisation tables (natural order)
-_Q_LUMA = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
-_Q_CHROMA = np.full(64, 99, np.int64)
-_Q_CHROMA.reshape(8, 8)[:4, :4] = [[17, 18, 24, 47], [18, 21, 26, 66],
-                                   [24, 26, 56, 99], [47, 66, 99, 99]]
-
-
-def _ac_values(head):
-    """Annex K.3 AC symbol lists: the listed head, then every other run/size
-    symbol in increasing order."""
-    symbols = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 11)]
-    return list(head) + sorted(set(symbols) - set(head))
-
-
-# Annex K.3 Huffman tables: (code counts by length 1..16, symbols)
-_DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
-_DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)))
-_AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], _ac_values([
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
-    0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1,
-    0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82]))
-_AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], _ac_values([
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
-    0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09,
-    0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
-    0xF1]))
-
-
-def _canonical_codes(counts, symbols):
-    """[(symbol, code, length)] of a JPEG Huffman table (Annex C)."""
-    out, code, k = [], 0, 0
-    for length in range(1, 17):
-        for _ in range(counts[length - 1]):
-            out.append((symbols[k], code, length))
-            code += 1
-            k += 1
-        code <<= 1
-    return out
-
-
-def _lookup_table(counts, symbols):
-    """A 65536-entry table: the next 16 bits of the stream -> length << 8 | symbol
-    (0 where no code matches)."""
-    lut = [0] * 65536
-    for sym, code, length in _canonical_codes(counts, symbols):
-        start = code << (16 - length)
-        lut[start:start + (1 << (16 - length))] = [(length << 8) | sym] * (1 << (16 - length))
-    return lut
-
-
-# ---------------------------------------------------------------------------
-# JPEG: integer IDCT (libjpeg's jidctint.c "islow"), vectorised over blocks
-
-_CONST_BITS, _PASS1_BITS = 13, 2
-_F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270,
-      "0_899976223": 7373, "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137,
-      "1_961570560": 16069, "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
-
-
-def _descale(x, n):
-    return (x + (1 << (n - 1))) >> n
-
-
-def _idct_1d(s):
-    """One pass of jidctint.c over axis -2 of int64 [..., 8, 8] (rows 0..7 of
-    the axis are the 8 inputs); returns the 8 outputs before descaling."""
-    z2, z3 = s[..., 2, :], s[..., 6, :]
-    z1 = (z2 + z3) * _F["0_541196100"]
-    tmp2 = z1 - z3 * _F["1_847759065"]
-    tmp3 = z1 + z2 * _F["0_765366865"]
-    tmp0 = (s[..., 0, :] + s[..., 4, :]) << _CONST_BITS
-    tmp1 = (s[..., 0, :] - s[..., 4, :]) << _CONST_BITS
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-
-    t0, t1, t2, t3 = s[..., 7, :], s[..., 5, :], s[..., 3, :], s[..., 1, :]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * _F["1_175875602"]
-    t0 = t0 * _F["0_298631336"]
-    t1 = t1 * _F["2_053119869"]
-    t2 = t2 * _F["3_072711026"]
-    t3 = t3 * _F["1_501321110"]
-    z1 = z1 * -_F["0_899976223"]
-    z2 = z2 * -_F["2_562915447"]
-    z3 = z3 * -_F["1_961570560"] + z5
-    z4 = z4 * -_F["0_390180644"] + z5
-    t0 = t0 + z1 + z3
-    t1 = t1 + z2 + z4
-    t2 = t2 + z2 + z3
-    t3 = t3 + z1 + z4
-    return np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-                     tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], axis=-2)
-
-
-def idct_islow(coef: np.ndarray) -> np.ndarray:
-    """Dequantised coefficients int [B, 8, 8] (natural order, [v, u]) ->
-    samples uint8 [B, 8, 8], bit for bit as libjpeg's jpeg_idct_islow."""
-    c = coef.astype(np.int64)
-    ws = _descale(_idct_1d(c), _CONST_BITS - _PASS1_BITS)                   # columns
-    out = _descale(_idct_1d(ws.swapaxes(-1, -2)), _CONST_BITS + _PASS1_BITS + 3)
-    out = out.swapaxes(-1, -2)
-    # libjpeg's range-limit table: the value taken mod 1024 into [-512, 511], + 128, clamped
-    out = ((out + 512) & 1023) - 512
-    return np.clip(out + 128, 0, 255).astype(np.uint8)
-
-
-# ---------------------------------------------------------------------------
-# JPEG: upsampling and colour (libjpeg's jdsample.c "fancy" and jdcolor.c)
-
-
-def _upsample_h2(x: np.ndarray, width: int) -> np.ndarray:
-    """h2v1 fancy upsampling along axis 1 of int [H, w] (w = the component's
-    real width): 3/4 nearer + 1/4 further sample, ends copied."""
-    if width <= 2:      # libjpeg replicates when the row is this short
-        return np.repeat(x[:, :width], 2, axis=1)
-    x = x[:, :width].astype(np.int64)
-    left = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
-    right = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
-    out = np.empty((x.shape[0], 2 * width), np.int64)
-    out[:, 0::2] = (3 * x + left + 1) >> 2
-    out[:, 1::2] = (3 * x + right + 2) >> 2
-    out[:, 0], out[:, -1] = x[:, 0], x[:, -1]
-    return out
-
-
-def _upsample_h2v2(x: np.ndarray, height: int, width: int) -> np.ndarray:
-    """h2v2 fancy upsampling of int [H, W] at the component's real size:
-    vertical 3:1 column sums, then a horizontal 3:1 blend with libjpeg's
-    rounding (8 and 7); the rows beyond each edge repeat the edge row."""
-    x = x[:height, :width].astype(np.int64)
-    if width <= 2:
-        return np.repeat(np.repeat(x, 2, axis=0), 2, axis=1)
-    above = np.concatenate([x[:1], x[:-1]], axis=0)
-    below = np.concatenate([x[1:], x[-1:]], axis=0)
-    out = np.empty((2 * height, 2 * width), np.int64)
-    for v, other in ((0, above), (1, below)):
-        colsum = 3 * x + other
-        last = np.concatenate([colsum[:, :1], colsum[:, :-1]], axis=1)
-        nxt = np.concatenate([colsum[:, 1:], colsum[:, -1:]], axis=1)
-        rows = out[v::2]
-        rows[:, 0::2] = (3 * colsum + last + 8) >> 4
-        rows[:, 1::2] = (3 * colsum + nxt + 7) >> 4
-        rows[:, 0] = (4 * colsum[:, 0] + 8) >> 4
-        rows[:, -1] = (4 * colsum[:, -1] + 7) >> 4
-    return out
-
-
-def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """libjpeg's fixed-point YCbCr -> RGB (jdcolor.c, 16 fraction bits)."""
-    one_half = 1 << 15
-
-    def fix(v):
-        return int(v * (1 << 16) + 0.5)
-
-    cb = cb.astype(np.int64) - 128
-    cr = cr.astype(np.int64) - 128
-    y = y.astype(np.int64)
-    r = y + ((fix(1.40200) * cr + one_half) >> 16)
-    g = y + ((-fix(0.34414) * cb + one_half - fix(0.71414) * cr) >> 16)
-    b = y + ((fix(1.77200) * cb + one_half) >> 16)
-    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
-
-
-# ---------------------------------------------------------------------------
-# JPEG: decoder
-
-
-class _Component:
-    def __init__(self, ident, h, v, tq):
-        self.ident, self.h, self.v, self.tq = ident, h, v, tq
-        self.coef = None    # array('i') of [blocks_y * blocks_x * 64], zig-zag order
-        self.blocks_x = self.blocks_y = 0   # the MCU-padded block grid
-        self.width = self.height = 0        # samples the component really has
-
-
-def _entropy_segments(data: bytes, pos: int):
-    """The entropy-coded bytes after an SOS, split at restart markers and
-    unstuffed, and the position of the marker that ends them."""
-    segments, start, i = [], pos, pos
-    n = len(data)
-    while True:
-        i = data.find(b"\xff", i)
-        if i < 0 or i + 1 >= n:
-            raise ValueError("JPEG entropy-coded data runs past the end of the file")
-        nxt = data[i + 1]
-        if nxt == 0x00 or nxt == 0xFF:
-            i += 1 if nxt == 0xFF else 2
-            continue
-        segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
-        if 0xD0 <= nxt <= 0xD7:
-            i += 2
-            start = i
-            continue
-        return segments, i
-
-
-def _decode_scan(segments, scan, mcus_x, mcus_y, restart):
-    """Huffman-decode one sequential scan into each component's coefficients.
-    `scan`: [(component, dc table, ac table)]."""
-    interleaved = len(scan) > 1
-    if interleaved:
-        units = [(c, dc, ac, dy, dx) for c, dc, ac in scan for dy in range(c.v)
-                 for dx in range(c.h)]
-        n_mcu_x, n_mcu = mcus_x, mcus_x * mcus_y
-    else:
-        c = scan[0][0]
-        n_mcu_x = -(-c.width // 8)
-        n_mcu = n_mcu_x * -(-c.height // 8)
-        units = [(c, scan[0][1], scan[0][2], 0, 0)]
-    per_interval = restart if restart else n_mcu
-    if len(segments) < -(-n_mcu // per_interval):
-        raise ValueError("JPEG scan holds fewer restart intervals than its MCUs need")
-    mcu = 0
-    for seg in segments:
-        if mcu >= n_mcu:
-            break
-        buf = seg + b"\x00" * 8
-        p = 0
-        preds = {id(u[0]): 0 for u in units}
-        for _ in range(min(per_interval, n_mcu - mcu)):
-            my, mx = divmod(mcu, n_mcu_x)
-            for comp, dcl, acl, dy, dx in units:
-                if interleaved:
-                    by, bx = my * comp.v + dy, mx * comp.h + dx
-                else:
-                    by, bx = my, mx
-                coef = comp.coef
-                base = (by * comp.blocks_x + bx) * 64
-                q = p >> 3
-                win = int.from_bytes(buf[q:q + 5], "big")
-                o = p & 7
-                code = dcl[(win >> (24 - o)) & 0xFFFF]
-                if not code:
-                    raise ValueError("JPEG: invalid Huffman code")
-                ln, s = code >> 8, code & 0xFF
-                p += ln
-                diff = 0
-                if s:
-                    o += ln
-                    bits = (win >> (40 - o - s)) & ((1 << s) - 1)
-                    diff = bits if bits >> (s - 1) else bits - (1 << s) + 1
-                    p += s
-                pred = preds[id(comp)] + diff
-                preds[id(comp)] = pred
-                coef[base] = pred
-                k = 1
-                while k < 64:
-                    q = p >> 3
-                    win = int.from_bytes(buf[q:q + 5], "big")
-                    o = p & 7
-                    code = acl[(win >> (24 - o)) & 0xFFFF]
-                    if not code:
-                        raise ValueError("JPEG: invalid Huffman code")
-                    ln, rs = code >> 8, code & 0xFF
-                    p += ln
-                    s = rs & 15
-                    if not s:
-                        if rs != 0xF0:
-                            break           # end of block
-                        k += 16
-                        continue
-                    k += rs >> 4
-                    o += ln
-                    bits = (win >> (40 - o - s)) & ((1 << s) - 1)
-                    p += s
-                    if k < 64:
-                        coef[base + k] = bits if bits >> (s - 1) else bits - (1 << s) + 1
-                    k += 1
-            mcu += 1
-    if mcu < n_mcu:
-        raise ValueError("JPEG scan ends before its last MCU")
-
-
-def read_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes -> uint8 [H, W] (gray) or [H, W, 3] (RGB)."""
-    if data[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG file")
-    qt, dc_luts, ac_luts = {}, {}, {}
-    comps, frame, restart, adobe = [], None, 0, None
-    pos = 2
-    while pos < len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"JPEG: expected a marker at byte {pos}")
-        marker = data[pos + 1]
-        pos += 2
-        if marker == 0xFF:
-            pos -= 1
-            continue
-        if marker == 0xD9:
-            break
-        (length,) = struct.unpack(">H", data[pos:pos + 2])
-        body = data[pos + 2:pos + length]
-        pos += length
-        if marker in (0xC0, 0xC1):
-            precision, height, width, nc = struct.unpack(">BHHB", body[:6])
-            if precision != 8:
-                raise ValueError(f"JPEG of {precision}-bit samples: only 8-bit is read")
-            comps = [_Component(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
-                                body[8 + 3 * i]) for i in range(nc)]
-            frame = (height, width)
-        elif marker == 0xC2 or marker == 0xC6 or marker == 0xCA or marker == 0xCE:
-            raise ValueError("progressive JPEG is not supported: only baseline "
-                             "(sequential Huffman) files are read")
-        elif 0xC3 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise ValueError(f"JPEG frame type 0x{marker:02X} is not supported: only baseline "
-                             "(sequential Huffman) files are read")
-        elif marker == 0xDB:
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                n = 128 if pq else 64
-                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
-                table = np.zeros(64, np.int64)
-                table[ZIGZAG] = vals
-                qt[tq] = table
-                i += 1 + n
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = list(body[i + 1:i + 17])
-                symbols = list(body[i + 17:i + 17 + sum(counts)])
-                (ac_luts if tc else dc_luts)[th] = _lookup_table(counts, symbols)
-                i += 17 + sum(counts)
-        elif marker == 0xDD:
-            (restart,) = struct.unpack(">H", body[:2])
-        elif marker == 0xEE and body[:5] == b"Adobe":
-            adobe = body[11] if len(body) > 11 else None
-        elif marker == 0xDA:
-            if frame is None:
-                raise ValueError("JPEG scan before its frame header")
-            hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-            mcus_x, mcus_y = -(-frame[1] // (8 * hmax)), -(-frame[0] // (8 * vmax))
-            for c in comps:
-                if c.coef is None:
-                    c.width = -(-frame[1] * c.h // hmax)
-                    c.height = -(-frame[0] * c.v // vmax)
-                    c.blocks_x, c.blocks_y = mcus_x * c.h, mcus_y * c.v
-                    c.coef = array("i", bytes(4 * 64 * c.blocks_x * c.blocks_y))
-            ns = body[0]
-            by_id = {c.ident: c for c in comps}
-            scan = [(by_id[body[1 + 2 * i]], dc_luts[body[2 + 2 * i] >> 4],
-                     ac_luts[body[2 + 2 * i] & 15]) for i in range(ns)]
-            ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
-            if ss != 0 or se != 63:
-                raise ValueError("progressive JPEG is not supported")
-            segments, pos = _entropy_segments(data, pos)
-            _decode_scan(segments, scan, mcus_x, mcus_y, restart)
-    if frame is None or any(c.coef is None for c in comps):
-        raise ValueError("JPEG without a complete frame")
-
-    height, width = frame
-    hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    planes = []
-    for c in comps:
-        coef = np.frombuffer(c.coef, np.int32).astype(np.int64).reshape(-1, 64)
-        natural = np.empty_like(coef)
-        natural[:, ZIGZAG] = coef
-        blocks = idct_islow((natural * qt[c.tq]).reshape(-1, 8, 8))
-        plane = blocks.reshape(c.blocks_y, c.blocks_x, 8, 8).transpose(0, 2, 1, 3)
-        plane = plane.reshape(c.blocks_y * 8, c.blocks_x * 8)
-        ratio = (hmax // c.h, vmax // c.v)
-        if ratio == (1, 1):
-            up = plane
-        elif ratio == (2, 1):
-            up = _upsample_h2(plane[:c.height], c.width)
-        elif ratio == (2, 2):
-            up = _upsample_h2v2(plane, c.height, c.width)
-        else:
-            raise ValueError(f"JPEG chroma subsampling {ratio} is not supported "
-                             "(4:4:4, 4:2:2 and 4:2:0 are)")
-        planes.append(up[:height, :width])
-    if len(planes) == 1:
-        return planes[0].astype(np.uint8)
-    if len(planes) != 3:
-        raise ValueError(f"JPEG with {len(planes)} components: gray and 3-component are read")
-    rgb_ids = [c.ident for c in comps] == [ord("R"), ord("G"), ord("B")]
-    if adobe == 0 or rgb_ids:
-        return np.stack(planes, axis=-1).astype(np.uint8)
-    return _ycc_to_rgb(*planes)
-
-
-# ---------------------------------------------------------------------------
-# JPEG: encoder (baseline, 4:4:4)
-
-
-def _quality_table(base: np.ndarray, quality: int) -> np.ndarray:
-    """libjpeg's quality scaling of a base table."""
-    quality = min(max(int(quality), 1), 100)
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    return np.clip((base * scale + 50) // 100, 1, 255)
-
-
-def _dct_matrix() -> np.ndarray:
-    k = np.arange(8)
-    m = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * 0.5
-    m[0] /= np.sqrt(2.0)
-    return m
-
-
-class _BitWriter:
-    def __init__(self):
-        self.out = bytearray()
-        self.acc = 0
-        self.n = 0
-
-    def write(self, code: int, length: int) -> None:
-        self.acc = (self.acc << length) | code
-        self.n += length
-        while self.n >= 8:
-            self.n -= 8
-            byte = (self.acc >> self.n) & 0xFF
-            self.out.append(byte)
-            if byte == 0xFF:
-                self.out.append(0)
-        self.acc &= (1 << self.n) - 1
-
-    def flush(self) -> bytes:
-        if self.n:
-            self.write((1 << (8 - self.n)) - 1, 8 - self.n)   # pad with ones
-        return bytes(self.out)
-
-
-def encode_jpeg(img: np.ndarray, quality: int = 75) -> bytes:
-    """uint8 [H, W, 3] RGB -> baseline JPEG bytes, YCbCr 4:4:4, the Annex K
-    quantisation tables scaled by `quality` as libjpeg scales them, and the
-    Annex K Huffman tables."""
-    h, w = img.shape[:2]
-    x = np.asarray(img, np.float64)
-    r, g, b = x[..., 0], x[..., 1], x[..., 2]
-    planes = [0.299 * r + 0.587 * g + 0.114 * b,
-              -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0,
-              0.5 * r - 0.418688 * g - 0.081312 * b + 128.0]
-    qtabs = [_quality_table(_Q_LUMA, quality), _quality_table(_Q_CHROMA, quality)]
-    bh, bw = -(-h // 8), -(-w // 8)
-    m = _dct_matrix()
-    quantised = []
-    for i, p in enumerate(planes):
-        padded = np.pad(p, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge") - 128.0
-        blocks = padded.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
-        coef = m @ blocks @ m.T
-        q = qtabs[min(i, 1)].reshape(8, 8)
-        quantised.append(np.round(coef / q).astype(np.int64).reshape(-1, 64)[:, ZIGZAG])
-
-    tables = [(_DC_LUMA, _AC_LUMA), (_DC_CHROMA, _AC_CHROMA)]
-    codes = [({s: (c, n) for s, c, n in _canonical_codes(*dc)},
-              {s: (c, n) for s, c, n in _canonical_codes(*ac)}) for dc, ac in tables]
-    bw_ = _BitWriter()
-    preds = [0] * len(planes)
-
-    def magnitude(v):
-        s = abs(v).bit_length()
-        return s, (v if v >= 0 else v + (1 << s) - 1)
-
-    for blk in range(bh * bw):
-        for ci, qz in enumerate(quantised):
-            dc_codes, ac_codes = codes[min(ci, 1)]
-            row = qz[blk].tolist()
-            s, bits = magnitude(row[0] - preds[ci])
-            preds[ci] = row[0]
-            bw_.write(*dc_codes[s])
-            if s:
-                bw_.write(bits, s)
-            run = 0
-            last = max((k for k in range(1, 64) if row[k]), default=0)
-            for k in range(1, last + 1):
-                v = row[k]
-                if v == 0:
-                    run += 1
-                    continue
-                while run > 15:
-                    bw_.write(*ac_codes[0xF0])
-                    run -= 16
-                s, bits = magnitude(v)
-                bw_.write(*ac_codes[(run << 4) | s])
-                bw_.write(bits, s)
-                run = 0
-            if last < 63:
-                bw_.write(*ac_codes[0x00])
-    scan = bw_.flush()
-
-    def segment(marker, body):
-        return b"\xff" + bytes([marker]) + struct.pack(">H", len(body) + 2) + body
-
-    out = bytearray(b"\xff\xd8")
-    out += segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for i in range(2):
-        out += segment(0xDB, bytes([i]) + bytes(qtabs[i][ZIGZAG].astype(np.uint8)))
-    nc = len(planes)
-    sof = struct.pack(">BHHB", 8, h, w, nc)
-    for i in range(nc):
-        sof += bytes([i + 1, 0x11, min(i, 1)])
-    out += segment(0xC0, sof)
-    for i, (dc, ac) in enumerate(tables):
-        out += segment(0xC4, bytes([0x00 | i]) + bytes(dc[0]) + bytes(dc[1]))
-        out += segment(0xC4, bytes([0x10 | i]) + bytes(ac[0]) + bytes(ac[1]))
-    sos = bytes([nc]) + b"".join(bytes([i + 1, (min(i, 1) << 4) | min(i, 1)])
-                                 for i in range(nc)) + b"\x00\x3f\x00"
-    out += segment(0xDA, sos)
-    out += scan + b"\xff\xd9"
-    return bytes(out)
-
-
-def write_jpeg(path: str, img: np.ndarray, quality: int = 75) -> None:
-    with open(path, "wb") as f:
-        f.write(encode_jpeg(img, quality))
-
-
-def read_bmp(data: bytes) -> np.ndarray:
-    """Uncompressed BMP bytes -> uint8 as Pillow reads them: 24- and 32-bit
-    files as [H, W, 3] (a 32-bit file's fourth byte is padding), 8-bit files
-    as [H, W] when the palette is the gray ramp, else [H, W, 3] through the
-    palette; rows bottom-up (height > 0) or top-down (height < 0)."""
+# BMP, as Pillow's BmpImagePlugin reads it
+
+# BI_BITFIELDS masks Pillow reads, by bits a pixel (every other layout raises)
+_BMP_MASKS = {
+    32: [(0xFF0000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+         (0xFF000000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000), (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+         (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)],
+    24: [(0xFF0000, 0xFF00, 0xFF)],
+    16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
+}
+
+
+def _bmp_header(data: bytes) -> dict:
+    """The fields of a BMP's file and info headers that Pillow reads."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP file")
     (offset,) = struct.unpack("<I", data[10:14])
-    (header,) = struct.unpack("<I", data[14:18])
-    if header < 40:
-        raise ValueError(f"BMP header of {header} bytes: only BITMAPINFOHEADER and later")
-    w, h, _, bpp, compression = struct.unpack("<iiHHI", data[18:34])
+    (size,) = struct.unpack("<I", data[14:18])
+    if size == 12:      # OS/2 1.x / Windows 2 core header: 16-bit sizes, 3-byte palette entries
+        w, h, _, bits = struct.unpack("<HHHH", data[18:26])
+        return dict(offset=offset, size=size, width=w, height=h, top_down=False, bits=bits,
+                    compression=0, colors=0, entry=3, masks=None)
+    if size not in (40, 52, 56, 64, 108, 124):
+        raise ValueError(f"BMP header of {size} bytes is not read")
+    w, h, _, bits, compression = struct.unpack("<IIHHI", data[18:34])
+    top_down = data[25] == 0xFF
+    if top_down:
+        h = 2 ** 32 - h
     (colors,) = struct.unpack("<I", data[46:50])
-    if compression != 0 or bpp not in (8, 24, 32):
-        raise ValueError(f"BMP of {bpp} bits, compression {compression}: only uncompressed "
-                         "8-, 24- and 32-bit files are read")
-    rows, stride = abs(h), (w * bpp // 8 + 3) // 4 * 4
-    pix = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
-    if h > 0:
-        pix = pix[::-1]
-    if bpp == 8:
-        n = colors or 256
-        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + header).reshape(n, 4)[:, 2::-1]
-        idx = pix[:, :w]
-        if (pal == np.arange(n, dtype=np.uint8)[:, None]).all():
-            return np.ascontiguousarray(idx)
+    masks = None
+    if compression == 3:
+        if size >= 52:   # in the header; a fourth (alpha) from V3 on
+            masks = struct.unpack("<IIII", data[54:70]) if size >= 56 else \
+                struct.unpack("<III", data[54:66]) + (0,)
+        else:            # after a 40-byte header: three, no alpha
+            masks = struct.unpack("<III", data[54:66]) + (0,)
+    return dict(offset=offset, size=size, width=w, height=h, top_down=top_down, bits=bits,
+                compression=compression, colors=colors, entry=4, masks=masks)
+
+
+def _bmp_rle(data: bytes, pos: int, width: int, height: int, rle4: bool) -> np.ndarray:
+    """RLE8 / RLE4 pixel data -> [height, width] indices in file row order,
+    as Pillow's BmpRleDecoder reads them (its reading of a delta escape, a
+    row overrun and absolute runs included)."""
+    out = bytearray()
+    x, n, want = 0, len(data), width * height
+    while len(out) < want:
+        if pos + 2 > n:
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:                               # encoded run
+            if x + count > width:
+                count = max(0, width - x)
+            if rle4:
+                pair = (byte >> 4, byte & 0x0F)
+                out += bytes(pair[i % 2] for i in range(count))
+            else:
+                out += bytes([byte]) * count
+            x += count
+        elif byte == 0:                         # end of line
+            out += bytes(-len(out) % width)
+            x = 0
+        elif byte == 1:                         # end of bitmap
+            break
+        elif byte == 2:                         # delta: Pillow skips two bytes, then reads
+            if pos + 2 > n:                     # right and up from the next two
+                break
+            if pos + 4 > n:
+                raise ValueError("BMP run-length delta runs past the end of the file")
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            out += bytes(right + up * width)
+            x = len(out) % width
+        else:                                   # absolute run
+            nbytes = byte // 2 if rle4 else byte
+            chunk = data[pos:pos + nbytes]
+            pos += len(chunk)
+            if rle4:
+                out += bytes(v for b in chunk for v in (b >> 4, b & 0x0F))
+            else:
+                out += chunk
+            if len(chunk) < nbytes:
+                break
+            x += byte
+            pos += pos % 2                      # to a 16-bit boundary of the file
+    if len(out) < want:
+        raise ValueError("BMP run-length data ends before its last pixel")
+    return np.frombuffer(bytes(out[:want]), np.uint8).reshape(height, width)
+
+
+def read_bmp(data: bytes) -> np.ndarray:
+    """BMP bytes -> what `imageio.v2.imread` returns (Pillow's BMP modes):
+    1-, 4- and 8-bit palette files (raw, RLE4, RLE8) as uint8 [H, W, 3]
+    through the palette, or, where the palette is Pillow's gray ramp, bool
+    [H, W] (2 colours, black and white) or uint8 [H, W] (the indices);
+    16-bit (5-5-5, or 5-6-5 by BI_BITFIELDS), 24-bit and 32-bit files as
+    uint8 [H, W, 3], [H, W, 4] where BI_BITFIELDS gives an alpha mask; the
+    12-byte core header and BITMAPINFOHEADER to V5; rows bottom-up or
+    top-down."""
+    hd = _bmp_header(data)
+    w, h, bits, comp = hd["width"], hd["height"], hd["bits"], hd["compression"]
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP of {bits} bits a pixel is not read")
+    offset = hd["offset"]
+    if bits <= 8:
+        if comp not in (0, 1, 2):
+            raise ValueError(f"BMP of {bits} bits, compression {comp} is not read")
+        colors = hd["colors"] or 1 << bits
+        if not 0 < colors <= 65536:
+            raise ValueError(f"BMP palette of {colors} colours")
+        entry = hd["entry"]
+        raw_pal = data[14 + hd["size"]:14 + hd["size"] + entry * colors]
+        gray_vals = (0, 255) if colors == 2 else range(colors)
+        gray = all(raw_pal[i * entry:i * entry + 3] == bytes([v]) * 3
+                   for i, v in enumerate(gray_vals))
+        if offset == 14 + hd["size"]:     # Pillow skips a palette the offset forgot
+            offset += 4 * colors
+        if comp in (1, 2):
+            if gray and colors == 2:
+                raise ValueError("run-length BMP with a black and white palette is not read")
+            idx = _bmp_rle(data, offset, w, h, comp == 2)
+        else:
+            stride = ((w * bits + 31) >> 3) & ~3
+            rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(h, stride)
+            # a gray palette makes Pillow unpack the rows as 1-bit or 8-bit pixels, whatever
+            # the file's depth
+            unpack = (1 if colors == 2 else 8) if gray else bits
+            if (w * unpack + 7) // 8 > stride:
+                raise ValueError(f"BMP rows of {stride} bytes cannot hold {w} pixels of "
+                                 f"{unpack} bits")
+            idx = unpack_samples(rows, w, unpack)
+        if not hd["top_down"]:
+            idx = idx[::-1]
+        if gray:
+            return np.ascontiguousarray(idx.astype(bool) if colors == 2 else idx)
+        pal = np.zeros((max(256, colors), 3), np.uint8)
+        n = len(raw_pal) // entry
+        pal[:n] = np.frombuffer(raw_pal[:n * entry], np.uint8).reshape(n, entry)[:, 2::-1]
         return np.ascontiguousarray(pal[idx])
-    k = bpp // 8
-    return np.ascontiguousarray(pix[:, :w * k].reshape(rows, w, k)[:, :, 2::-1])
+    if comp == 3:
+        masks = hd["masks"] if bits == 32 else hd["masks"][:3]
+        if masks not in _BMP_MASKS.get(bits, []):
+            raise ValueError(f"BMP bitfields layout {tuple(hex(m) for m in masks)} at {bits} "
+                             "bits is not read")
+        if masks == (0, 0, 0, 0):
+            masks = (0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+    elif comp == 0:
+        masks = {16: (0x7C00, 0x3E0, 0x1F), 24: (0xFF0000, 0xFF00, 0xFF),
+                 32: (0xFF0000, 0xFF00, 0xFF)}[bits]
+    else:
+        raise ValueError(f"BMP of {bits} bits, compression {comp} is not read")
+    stride = ((w * bits + 31) >> 3) & ~3
+    k = bits // 8
+    rows = np.frombuffer(data, np.uint8, h * stride, offset).reshape(h, stride)
+    px = rows[:, :w * k].reshape(h, w, k).astype(np.uint32) \
+        @ (np.uint32(1) << (8 * np.arange(k, dtype=np.uint32)))
+    if not hd["top_down"]:
+        px = px[::-1]
+    out = []
+    for m in masks:
+        if not m:
+            continue
+        shift, width = (m & -m).bit_length() - 1, bin(m).count("1")
+        v = ((px & m) >> shift).astype(np.int64)
+        out.append(v if width == 8 else v * 255 // ((1 << width) - 1))
+    return np.stack(out, axis=-1).astype(np.uint8)
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG, a baseline JPEG or an uncompressed BMP file, told apart by
-    its first bytes, as uint8 [H, W] or [H, W, C]. A file that cannot be
-    read raises naming it."""
+    """Read a PNG, JPEG or BMP file, told apart by its first bytes, as
+    `imageio.v2.imread` reads it: the same shape, dtype (uint8, or bool for
+    1-bit gray, uint16 for 16-bit gray PNG) and values. A file that cannot
+    be read raises a ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     readers = {PNG_SIGNATURE: read_png, b"\xff\xd8": read_jpeg, b"BM": read_bmp}
@@ -690,19 +216,26 @@ def imread(path: str) -> np.ndarray:
         if data.startswith(magic):
             try:
                 return read(data)
-            except ValueError as e:
+            except (ValueError, IndexError, struct.error) as e:
                 raise ValueError(f"{path}: {e}") from e
     raise ValueError(f"{path}: neither a PNG, a JPEG nor a BMP file")
 
 
 def image_size(path: str) -> tuple:
-    """(H, W) of a PNG or JPEG file from its header, without decoding it."""
+    """(H, W) of a PNG, JPEG or BMP file, from its header alone."""
     with open(path, "rb") as f:
-        data = f.read(1 << 16)
-    if data[:8] == PNG_SIGNATURE:
-        w, h = struct.unpack(">II", data[16:24])
-        return h, w
-    return imread(path).shape[:2]
+        data = f.read()
+    try:
+        if data.startswith(PNG_SIGNATURE):
+            return png_size(data)
+        if data.startswith(b"BM"):
+            hd = _bmp_header(data)
+            return hd["height"], hd["width"]
+        if data.startswith(b"\xff\xd8"):
+            return jpeg_size(data)
+    except (ValueError, struct.error) as e:
+        raise ValueError(f"{path}: {e}") from e
+    raise ValueError(f"{path}: neither a PNG, a JPEG nor a BMP file")
 
 
 # ---------------------------------------------------------------------------

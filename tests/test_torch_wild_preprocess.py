@@ -192,7 +192,8 @@ def test_cli_equals_preprocess_dir(tmp_path, capsys):
 
 
 def test_stages_and_unreadable_photo(tmp_path):
-    """--stages writes only the named stages; a progressive JPEG stops the run
+    """--stages writes only the named stages; a photo neither package reads
+    (a JPEG of 12-bit samples, which imageio refuses too) stops the run
     naming the file (it is not skipped)."""
     d = str(tmp_path / "p")
     _folder(d, with_bmp=False)
@@ -200,7 +201,11 @@ def test_stages_and_unreadable_photo(tmp_path):
     assert os.listdir(os.path.join(d, "mask")) == []
     assert os.listdir(os.path.join(d, "segRelRes")) == []
     assert sorted(os.listdir(os.path.join(d, "segRes"))) == ["A.png", "B.png", "C.png"]
-    Image.fromarray(_photo(np.random.default_rng(1), 64, 64)).save(
-        os.path.join(d, "E.jpg"), progressive=True)
-    with pytest.raises(ValueError, match=r"E\.jpg: progressive JPEG"):
+    Image.fromarray(_photo(np.random.default_rng(1), 64, 64)).save(os.path.join(d, "E.jpg"))
+    with open(os.path.join(d, "E.jpg"), "rb") as f:
+        data = f.read()
+    sof = data.index(b"\xff\xc0")
+    with open(os.path.join(d, "E.jpg"), "wb") as f:     # the frame's sample precision: 12 bits
+        f.write(data[:sof + 4] + bytes([12]) + data[sof + 5:])
+    with pytest.raises(ValueError, match=r"E\.jpg: JPEG of 12-bit samples"):
         tpipe.preprocess_dir(d, device="cpu")
