@@ -128,6 +128,17 @@ Phases, each failing loudly:
      run_fit on D's relit photo; run_train on the training fixture with the
      progressive 512^2 UV map for every identity; field kernel launches
      counted on both paths.
+  13. the examples (mofanerf_tpu_torch/examples), after the formats phase: the eight
+     synthetic-data studies through their main(), each rendering its scene with the
+     rasterizer, training its teacher (8x64 + 8x128 f32, or the quick 4x32 + 4x64) and
+     reading it: distill_morphable at half its JAX budgets with its gates (own > cross + 3
+     dB, own > 18 dB), the other seven at their quick size; each checked to run to its
+     end, its JSON's keys against the JAX package's artifact, every reading finite, and
+     both kernels' launches against what its renders and steps imply (counted by shape
+     too); then both kernels
+     at the studies' shapes (f32 fields of 8x64 and 8x128 at a 64^2 frame's packet and at
+     distillation's 8192 points; the avatar and quick students) against their plain
+     versions, timed in turns with them, beside their bounds.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -219,6 +230,36 @@ DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
 FORMATS_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "formats")
 FORMATS_FIT_ITERS, FORMATS_TRAIN_STEPS, FORMATS_DECODE_TURNS = 10, 2, 2
 
+# the examples phase (mofanerf_tpu_torch/examples), after the formats phase: distill_morphable
+# at half its JAX budgets (3000 + 9000 steps took over the 150 s given it on the card), the
+# other seven at their quick size: --quick (distill_synthetic's teacher cut to 400 steps of its
+# 2000), or --iters 400 where the JAX script has no --quick. (study, argv, JSON written)
+EXAMPLES_RUNS = (
+    ("distill_morphable", ["--out", "@OUT", "--iters", "1500", "--distill_steps", "4500"],
+     "avatar_student_quality.json"),
+    ("train_synthetic", ["--out", "@OUT", "--iters", "400"], "train_synthetic.json"),
+    ("expression_synthetic", ["@OUT", "--iters", "400"], "expression_synthetic.json"),
+    ("texture_synthetic", ["@OUT", "--iters", "400"], "texture_synthetic.json"),
+    ("morphable_synthetic", ["--out", "@OUT", "--iters", "400"], "morphable_synthetic.json"),
+    ("distill_synthetic", ["--out", "@OUT", "--quick", "--iters", "400"], "distill_quality.json"),
+    ("distill_expression", ["--out", "@OUT", "--quick"], "cond_student_quality.json"),
+    ("distill_scenes", ["--out", "@OUT", "--quick"], "distill_scenes.json"),
+)
+EXAMPLES_TIMEOUT = 400.0   # s for the eight studies together
+# the kernels at the studies' shapes: f32 fields (depth, width, rays, samples a ray) and
+# bf16 students (depth, width, multires, rays a packet, samples a ray); the launches of
+# the kernels line are the examples phase's at each shape (the wrappers' launch_shapes)
+EXAMPLE_FIELDS = {"coarse": (8, 64, 4096, 32), "fine": (8, 128, 4096, 64),
+                  "distill": (8, 128, 8192, 1)}
+EXAMPLE_STUDENTS = {"avatar": (4, 128, 10, 1024, 32), "quick": (3, 32, 6, 4096, 16)}
+
+
+def example_shape(label):
+    """The wrapper's launch_shapes key of a kernels-line row of the studies' shapes."""
+    if label in EXAMPLE_FIELDS:
+        return ("field", ("float32",) + EXAMPLE_FIELDS[label])
+    return ("serve", ("bfloat16",) + EXAMPLE_STUDENTS[label])
+
 
 def fail(failures, msg):
     print(f"FAIL: {msg}", flush=True)
@@ -239,6 +280,19 @@ def cuda_ms(fn, iters, warmup=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def in_turns(runs):
+    """Each of `runs` (name -> call) timed in SMALL_TURNS alternating turns (a, b, b, a, ...)
+    of about SMALL_TURN_MS by CUDA events, the launches of a turn calibrated first:
+    (medians, turns, launches a turn)."""
+    names = list(runs)
+    iters = {k: max(10, int(SMALL_TURN_MS / cuda_ms(fn, iters=5, warmup=2)))
+             for k, fn in runs.items()}
+    turns = {k: [] for k in names}
+    for turn in (names + names[::-1]) * (SMALL_TURNS // 2):
+        turns[turn].append(cuda_ms(runs[turn], iters=iters[turn], warmup=1))
+    return {k: float(np.median(v)) for k, v in turns.items()}, turns, iters
 
 
 def field_flops_per_point(cfg, n_layers):
@@ -1017,14 +1071,10 @@ def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
             # SMALL_TURN_MS a turn, the median turn kept
             n_rays, ns = SMALL_SIDE ** 2, SMALL_FIELDS[name][2]
             pe_t, dirf_t = field_inputs(cfg, params[name]["view"]["w_dirs"], n_rays, ns, 29, dev)
-            runs = {"kernel": lambda: fk.fused_field_apply(fused, pe_t, dirf_t, cfg, ns),
-                    "plain": lambda: fk.fused_field_apply_ref(fused, pe_t, dirf_t, cfg, ns)}
-            turns = {"kernel": [], "plain": []}
             with torch.no_grad():
-                iters = {k: max(10, int(SMALL_TURN_MS / cuda_ms(fn, iters=5, warmup=2)))
-                         for k, fn in runs.items()}
-                for turn in ("kernel", "plain", "plain", "kernel") * (SMALL_TURNS // 2):
-                    turns[turn].append(cuda_ms(runs[turn], iters=iters[turn], warmup=1))
+                med, turns, iters = in_turns({
+                    "kernel": lambda: fk.fused_field_apply(fused, pe_t, dirf_t, cfg, ns),
+                    "plain": lambda: fk.fused_field_apply_ref(fused, pe_t, dirf_t, cfg, ns)})
             # the bound of the function the field computes (its own depth and width, f32
             # products at the 3xTF32 rate as the full-width rows take them), and beside it
             # that of the padded shape the kernel runs (kernel_config's depth and width)
@@ -1040,7 +1090,6 @@ def f32_and_small_phase(failures, card, dev, field_rows, H=F32_SIDE):
                 bounds[shape_name] = (max(t_ops, t_bytes),
                                       "operations" if t_ops >= t_bytes else "bytes", t_ops,
                                       t_bytes)
-            med = {k: float(np.median(v)) for k, v in turns.items()}
             timing[name] = {"ms": med["kernel"], "plain_ms": med["plain"],
                             "bound_ms": bounds["field"][0], "bound_by": bounds["field"][1],
                             "padded_bound_ms": bounds["padded"][0],
@@ -3259,6 +3308,238 @@ def formats_phase(failures, card, dev, render_flags, tmp):
             "train_losses": train_losses, "train_launches": train_launches, "card": card}
 
 
+def _finite_readings(tree):
+    """Every number of a study's JSON is finite (booleans and strings aside)."""
+    if isinstance(tree, dict):
+        return all(_finite_readings(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite_readings(v) for v in tree)
+    return not isinstance(tree, float) or bool(np.isfinite(tree))
+
+
+def example_launches(study, argv, result):
+    """(field kernel, serving kernel) launches that a study's renders and steps imply:
+    a teacher frame launches each field once a packet of 4096 rays; render_frame_fast the
+    fine field once a packet; a distillation step the teacher once; a served frame the
+    serving kernel once a packet; a timed packet 17 times (one warm-up, 16 timed)."""
+    flags = {a: b for a, b in zip(argv, argv[1:] + [""]) if a.startswith("--")}
+    res = 48 if "--quick" in argv and study in ("distill_morphable", "distill_expression") \
+        else int(flags.get("--res", 64))
+    frame = 2 * n_packets(res * res, 4096)   # a teacher frame, both fields
+
+    def served(packet):
+        return n_packets(res * res, packet)
+    if study in ("train_synthetic",):
+        return frame, 0
+    if study in ("expression_synthetic", "texture_synthetic"):
+        return 2 * frame, 0
+    if study == "morphable_synthetic":
+        return 3 * frame, 0
+    if study == "distill_morphable":
+        return 2 * frame + int(flags["--distill_steps"]), 2 * served(1024)
+    if study == "distill_expression":
+        steps = 500 if "--quick" in argv else int(flags.get("--distill_steps", 3000))
+        return 2 * frame + steps + 2 * (steps // 2), 7 * served(1024)
+    if study == "distill_synthetic":
+        # 4 views; render_frame_fast and a timed packet at 2 keeps; 1 student (--quick) or 3;
+        # the serving kernel takes the first student only, at S = 16 (--quick) or 16 and 32
+        steps = int(flags.get("--distill_steps", 3000))
+        quick = "--quick" in argv
+        fast = 2 * (4 * n_packets(res * res, 4096) + 17)
+        return (4 * frame + fast + (1 if quick else 3) * steps,
+                (1 if quick else 2) * (4 * served(4096) + 17))
+    if study == "distill_scenes":
+        steps = 150 if "--quick" in argv else int(flags.get("--distill_steps", 3000))
+        attempts = [len(r["teacher_attempts"]) for r in result["scenes"]]
+        return sum(4 * frame * a + steps for a in attempts), 4 * served(4096) * len(attempts)
+    raise ValueError(study)
+
+
+# a study's own process: run_studies.run_study on its argv (JSON), printed as the last line
+EXAMPLE_RUNNER = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from mofanerf_tpu_torch.examples.run_studies import run_study
+print(json.dumps(run_study(sys.argv[1], json.loads(sys.argv[2]))))
+"""
+
+
+def examples_phase(failures, card, dev, tmp):
+    """The synthetic-data studies of mofanerf_tpu_torch/examples, each through its main()
+    as `python -m` runs it, each in a process of its own and all eight at once (their
+    small steps keep the host busy and leave the card mostly idle): distill_morphable at
+    EXAMPLES_RUNS' budgets with its JAX gates (applied by the study), the other seven at
+    their quick size. For each: that it ran to its end with its gates, its JSON's keys
+    (`_scenes.JSON_KEYS`: the JAX artifact's), every reading finite, and the field and
+    serving kernels' launches against what its renders and steps imply, the counts
+    (total and by shape) zeroed in its process just before its main() and read just
+    after (`run_studies.run_study`). Returns each study's run and the launches by shape
+    summed over the studies."""
+    from mofanerf_tpu_torch.examples import _scenes
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for study, argv, json_name in EXAMPLES_RUNS:
+        out = os.path.join(tmp, "examples", study)
+        os.makedirs(out, exist_ok=True)
+        argv = [out if a == "@OUT" else a for a in argv] + ["--device", str(dev)]
+        log = open(os.path.join(out, "log.txt"), "w")
+        procs[study] = (subprocess.Popen([sys.executable, "-c", EXAMPLE_RUNNER, study,
+                                          json.dumps(argv)], cwd=REPO, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT), log, argv, out, json_name)
+    t0 = time.perf_counter()
+    runs, shapes = {}, {"field": {}, "serve": {}}
+    try:
+        for study, (proc, log, argv, out, json_name) in procs.items():
+            rc = proc.wait(timeout=max(1.0, EXAMPLES_TIMEOUT - (time.perf_counter() - t0)))
+            log.close()
+            with open(os.path.join(out, "log.txt")) as f:
+                text = f.read()
+            report = json.loads(text.strip().splitlines()[-1]) if rc == 0 else None
+            if report is None or report["status"] != "ok":
+                fail(failures, f"examples: {study} {argv[:-2]} did not run to its end (rc "
+                               f"{rc}): {text[-2000:]}")
+                continue
+            launches = tuple(report["launches"])
+            for name, rows in report["launch_shapes"].items():
+                for *shape, n in rows:
+                    shapes[name][tuple(shape)] = shapes[name].get(tuple(shape), 0) + n
+            with open(os.path.join(out, json_name)) as f:
+                written = json.load(f)
+            want = example_launches(study, argv, written)
+            keys_ok = _scenes.key_tree(written) == _scenes.JSON_KEYS[study]
+            finite = _finite_readings(written)
+            runs[study] = {"argv": argv[:-2], "secs": report["wall_secs"], "launches": launches,
+                           "launch_shapes": report["launch_shapes"],
+                           "expected_launches": want, "timing": report["timing"],
+                           "json": written}
+            print(f"examples: {study} {' '.join(argv[:-2])}: {report['wall_secs']:.1f} s (beside "
+                  f"the other studies); field kernel launches {launches[0]} (expected "
+                  f"{want[0]}), serving kernel {launches[1]} (expected {want[1]}); by shape "
+                  f"{json.dumps(report['launch_shapes'])}; JSON keys as the JAX artifact's "
+                  f"{keys_ok}; readings finite {finite}; {json.dumps(written)}; on {card}",
+                  flush=True)
+            if tuple(want) != launches or not keys_ok or not finite \
+                    or written.get("device") != card:
+                fail(failures, f"examples: {study}: launches {launches} (expected {want}), "
+                               f"keys {keys_ok}, finite {finite}, device "
+                               f"{written.get('device')!r}")
+    finally:
+        for proc, log, *_ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for label in (*EXAMPLE_FIELDS, *EXAMPLE_STUDENTS):
+        part, shape = example_shape(label)
+        print(f"examples: {part} kernel launches at the {label} row's shape {shape}: "
+              f"{shapes[part].get(shape, 0)}", flush=True)
+        if not shapes[part].get(shape):
+            fail(failures, f"examples: no {part} kernel launch at {shape} in the studies' runs")
+    return runs, shapes
+
+
+def examples_kernel_rows(failures, card, dev):
+    """The field and serving kernels at the studies' shapes, seeded weights, each against
+    its plain version on the card (the error) and timed in turns with it (CUDA events),
+    beside its bound: f32 fields of 8x64 (4096 rays x 32) and 8x128 (4096 x 64, the
+    union of 32 + 32) of a 64^2 teacher frame, and the 8x128 field at distill_morphable's
+    8192 points x 1; the avatar student (4x128, multires 10, bf16, 32 samples) at the
+    served frame's packets of 1024 rays, and the quick student (3x32, multires 6, bf16,
+    16 samples) at packets of 4096 rays, on the rays of a 64^2 frame of the studies'
+    camera grid (their hit share counted)."""
+    import torch
+
+    from mofanerf_tpu_torch.datagen.multiview import camera_grid
+    from mofanerf_tpu_torch.models.field import (FieldConfig, fold_conditioning,
+                                                 init_field_params)
+    from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops.rays import get_rays
+
+    rows = {}
+    gen = torch.Generator().manual_seed(31)
+    codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
+    for label, (depth, width, n_rays, ns) in EXAMPLE_FIELDS.items():
+        cfg = FieldConfig(depth=depth, width=width, compute_dtype=torch.float32)
+        params = init_field_params(gen, cfg, device=dev)
+        fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
+        w_dirs = params["view"]["w_dirs"]
+        pe, dirf = (point_inputs(cfg, w_dirs, n_rays, 33, dev) if ns == 1
+                    else field_inputs(cfg, w_dirs, n_rays, ns, 33, dev))
+        with torch.no_grad():
+            got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, ns), -1)
+            torch.cuda.synchronize()
+            ref = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns), -1)
+            scale = max(1.0, float(ref.abs().max()))
+            tol, tol_rms = (t * scale for t in FIELD_TOL["float32"])
+            diff = (got - ref).abs()
+            err, rms = float(diff.max()), float(diff.square().mean().sqrt())
+            med, turns, _ = in_turns({
+                "kernel": lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
+                "plain": lambda: fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns)})
+        n_layers, n_rows = fused.w_stack.shape[0], n_rays * ns
+        ops_count = n_rows * field_flops_per_point(cfg, n_layers)
+        t_tf32, t_ffma = 3 * ops_count / PEAK_TF32 * 1e3, ops_count / PEAK_F32 * 1e3
+        t_bytes = (field_io_bytes(cfg, n_rows, n_rays)
+                   + field_weight_bytes(cfg, n_layers, 4)) / PEAK_BYTES * 1e3
+        rows[label] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                       "bound_ms": max(t_tf32, t_bytes),
+                       "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
+                       "ffma_bound_ms": max(t_ffma, t_bytes), "max_abs_err": err,
+                       "rays": n_rays, "samples": ns, "turns_ms": turns}
+        print(f"examples' field {label} {depth}x{width} f32 ({fk.kernel_config(cfg).width} wide "
+              f"in the kernel), {n_rays} rays x {ns}: max|kernel-plain| {err:.3e} rms "
+              f"{rms:.3e} (tol {tol:.3e} / {tol_rms:.3e}); kernel {med['kernel']:.4f} ms, plain "
+              f"{med['plain']:.4f} ms (medians of turns {turns}); bound "
+              f"{rows[label]['bound_ms']:.5f} ms by {rows[label]['bound_by']} (3xTF32 "
+              f"{t_tf32:.5f}, FFMA {t_ffma:.5f}, bytes {t_bytes:.5f}) on {card}", flush=True)
+        if not (err <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
+            fail(failures, f"examples' field {label}: the kernel disagrees with its plain version")
+
+    K = torch.tensor([[150.0, 0, 32.0], [0, 150.0, 32.0], [0, 0, 1]], device=dev)
+    c2w = torch.as_tensor(camera_grid()[47][:3], dtype=torch.float32, device=dev)
+    ro, rd = (r.reshape(-1, 3) for r in get_rays(64, 64, K, c2w))
+    box = ((-3.0,) * 3, (3.0,) * 3)
+    for label, (depth, width, mr, packet, ns) in EXAMPLE_STUDENTS.items():
+        cfg = StudentConfig(depth=depth, width=width, multires=mr, compute_dtype=torch.bfloat16)
+        params = init_student_params(gen, cfg, device=dev)
+        params["sigma"]["b"] = params["sigma"]["b"] + 1.5
+        pack = sk.pack_student(params, cfg)
+        o, d = ro[:packet].contiguous(), rd[:packet].contiguous()
+        aux, dirf = sk.ray_operands(pack, cfg, o, d, 8.0, 26.0, *box)
+        n_hit = int((aux[:, 2] > 0).sum())
+        with torch.no_grad():
+            got = sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, False)
+            torch.cuda.synchronize()
+            ref = sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, False)
+            err = float((got[:, :4] - ref[:, :4]).abs().max())
+            med, turns, _ = in_turns({
+                "kernel": lambda: sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, False),
+                "plain": lambda: sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, False)})
+        t_ops = n_hit * ns * flops_per_sample(depth, width, mr) / PEAK_BF16 * 1e3
+        t_bytes = kernel_bytes(packet, depth, width, mr, 2) / PEAK_BYTES * 1e3
+        rows[label] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "max_abs_err": err, "rays": packet, "hit_rays": n_hit, "samples": ns,
+                       "design": "wgmma" if sk.uses_wgmma(cfg, ns) else "mma.sync",
+                       "turns_ms": turns}
+        print(f"examples' student {label} {depth}x{width} mr{mr} bf16 ({rows[label]['design']}), "
+              f"{packet} rays ({n_hit} hit the box) x {ns}: max|kernel-plain| rgb/acc {err:.3e} "
+              f"(tol {TOL['bfloat16']}); kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} "
+              f"ms (medians of turns {turns}); bound {rows[label]['bound_ms']:.5f} ms by "
+              f"{rows[label]['bound_by']} (operations over hit rays {t_ops:.5f}, bytes "
+              f"{t_bytes:.5f}) on {card}", flush=True)
+        if err > TOL["bfloat16"] or not bool(torch.isfinite(got).all()):
+            fail(failures, f"examples' student {label}: the kernel disagrees with its plain "
+                           f"version")
+    return rows
+
+
 def train_step_timing(failures, card, dev, final, cfg, batches):
     """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
     samples, the fine pass on 128, N_rand 1024, UV 512, bf16) from the trained state:
@@ -3349,7 +3630,7 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
           f"profiler, card busy {busy / n_prof * 1e3:.2f} ms a step ({busy / wall:.1%}, idle "
           f"{1 - busy / wall:.1%}) in {n_launch:.0f} kernel launches a step "
           f"({len(kernels)} kernels by name; {len(tree_leaves(state.params))} parameter "
-          f"leaves, each checked and selected by the skip); texture encoder "
+          f"leaves, each selected by the skip after one check over all of them); texture encoder "
           f"{enc / n_prof * 1e3:.2f} ms a step, {enc / busy:.1%} of the kernel time; top: "
           + "; ".join(f"{k[:48]} {v / n_prof / 1e3:.2f} ms" for k, v in top) + f" on {card}",
           flush=True)
@@ -3890,6 +4171,13 @@ def main(argv) -> int:
         print(f"path phase (image formats: the committed files, wild_preprocess -> run_fit on "
               f"a progressive photo, run_train with a progressive UV map): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        examples, example_shapes = examples_phase(failures, card, dev, work)
+        print(f"path phase (examples: the eight synthetic-data studies): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    example_rows = examples_kernel_rows(failures, card, dev)
+    print(f"kernel phase (the studies' shapes): {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"convert": converted}), flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
@@ -3899,6 +4187,7 @@ def main(argv) -> int:
     print(json.dumps({"preprocess": wild}), flush=True)
     print(json.dumps({"formats": formats}), flush=True)
     print(json.dumps({"multi_card": dict(multi, card=card)}), flush=True)
+    print(json.dumps({"examples": dict(examples, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -4012,6 +4301,27 @@ def main(argv) -> int:
                 "padded_bound_ms": row["padded_bound_ms"],
                 "library_ms": None,
             })
+    # the studies' shapes: their launches at that shape in the examples phase's runs
+    for label, row in example_rows.items():
+        part, shape = example_shape(label)
+        launches = example_shapes[part][shape]
+        if label in EXAMPLE_FIELDS:
+            depth, width, n_rays, ns = EXAMPLE_FIELDS[label]
+            name = (f"fused_field_apply[examples {label} {depth}x{width} f32, 3xTF32 "
+                    f"{n_rays}x{ns}]")
+            source = "mofanerf_tpu_torch/csrc/field_kernel_tf32.cuh"
+            replaces = "mofanerf_tpu/ops/pallas_field.py:238"
+        else:
+            depth, width, mr, n_rays, ns = EXAMPLE_STUDENTS[label]
+            name = (f"render_rays_bounded_fused[examples {label} {depth}x{width} mr{mr} bf16, "
+                    f"{n_rays}x{ns}]")
+            source = f"mofanerf_tpu_torch/csrc/serve_kernel_{row['design'].split('.')[0]}.cuh"
+            replaces = "mofanerf_tpu/ops/pallas_serve.py:221"
+        field_entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",
         "route": "cuda",

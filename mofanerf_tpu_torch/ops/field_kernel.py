@@ -52,6 +52,7 @@ whose layout is unchanged.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import Any, Dict, NamedTuple
@@ -63,8 +64,10 @@ from mofanerf_tpu_torch.models.field import FieldConfig
 
 Params = Dict[str, Any]
 
-# kernel launches made by `fused_field_apply` in this process
+# kernel launches made by `fused_field_apply` in this process, and the same launches by
+# shape: (dtype, depth, width of the kernel's config, rays, samples a ray) -> launches
 launch_count = 0
+launch_shapes: collections.Counter = collections.Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_WIDTH = 1024
@@ -620,6 +623,8 @@ def _field_cuda(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
         raise RuntimeError(f"field_apply kernel launch failed: cudaError {err}")
     if n_rows:
         launch_count += 1
+        launch_shapes[(str(cfg.compute_dtype).removeprefix("torch."), cfg.depth, cfg.width,
+                       n_rows // samples_per_ray, samples_per_ray)] += 1
     return out
 
 

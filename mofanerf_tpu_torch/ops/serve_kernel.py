@@ -25,6 +25,7 @@ plain operands.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Any, Dict, NamedTuple
@@ -45,8 +46,10 @@ Params = Dict[str, Any]
 # ragged edge
 _BLOCK_R = 256
 
-# kernel launches made by `render_rays_bounded_fused` in this process
+# kernel launches made by `render_rays_bounded_fused` in this process, and the same
+# launches by shape: (dtype, depth, width, multires, rays, samples a ray) -> launches
 launch_count = 0
+launch_shapes: collections.Counter = collections.Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SAMPLES = {torch.float32: 128, torch.bfloat16: 256}  # sample rows a CTA holds
@@ -92,12 +95,31 @@ def _embed_constants(multires: int):
     return A, phase
 
 
-def _check_config(cfg) -> None:
+def _refusal(cfg):
+    """Why the kernel does not take the student `cfg`, or None where it does: a
+    skipless StudentConfig in f32 or bf16, its width a multiple of 32 up to 128
+    and its embedding no wider."""
     if not isinstance(cfg, StudentConfig) or cfg.skip != -1:
-        raise ValueError("the fused serving kernel takes the skipless student "
-                         "(StudentConfig with skip == -1)")
+        return ("the fused serving kernel takes the skipless student "
+                "(StudentConfig with skip == -1)")
     if cfg.compute_dtype not in _DTYPE_CODE:
-        raise ValueError(f"compute dtype {cfg.compute_dtype} is not float32 or bfloat16")
+        return f"compute dtype {cfg.compute_dtype} is not float32 or bfloat16"
+    if cfg.width % 32 or cfg.width > _MAX_WIDTH or 3 + 6 * cfg.multires > _MAX_WIDTH:
+        return (f"the kernel takes widths that are multiples of 32 up to {_MAX_WIDTH} and "
+                f"3 + 6*multires <= {_MAX_WIDTH}; got width={cfg.width}, "
+                f"multires={cfg.multires}")
+    return None
+
+
+def takes(cfg) -> bool:
+    """Whether the kernel takes the student `cfg` (`_check_config` raises where not)."""
+    return _refusal(cfg) is None
+
+
+def _check_config(cfg) -> None:
+    reason = _refusal(cfg)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def takes_tiles(cfg: StudentConfig) -> bool:
@@ -378,10 +400,7 @@ def _serve_cuda(pack: StudentPack, aux, dirf, cfg: StudentConfig, rays_o, rays_d
     if not 1 <= n_samples <= _MAX_SAMPLES[dt]:
         raise ValueError(f"the kernel takes 1..{_MAX_SAMPLES[dt]} samples a ray "
                          f"in {dt}, got {n_samples}")
-    if cfg.width % 32 or cfg.width > _MAX_WIDTH or 3 + 6 * cfg.multires > _MAX_WIDTH:
-        raise ValueError(f"the kernel takes widths that are multiples of 32 up to "
-                         f"{_MAX_WIDTH} and 3 + 6*multires <= {_MAX_WIDTH}; got "
-                         f"width={cfg.width}, multires={cfg.multires}")
+    _check_config(cfg)
     W, W2 = cfg.width, cfg.width // 2
     wgmma = uses_wgmma(cfg, n_samples)
     shapes = {"rays_o": (N, 3), "rays_d": (N, 3), "aux": (N, 4), "dirf": (N, W2),
@@ -415,6 +434,8 @@ def _serve_cuda(pack: StudentPack, aux, dirf, cfg: StudentConfig, rays_o, rays_d
         raise RuntimeError(f"serve_render kernel launch failed: cudaError {err}")
     if N:
         launch_count += 1
+        launch_shapes[(str(dt).removeprefix("torch."), cfg.depth, W, cfg.multires, N,
+                       n_samples)] += 1
     return out
 
 

@@ -197,8 +197,10 @@ def train_step(state: TrainState, batch: Batch, generator: torch.Generator | Non
     new_p, new_mu, new_nu, count = tx.update(grads, state.opt_state, leaves)
     metrics = {"loss": loss, "psnr": mse2psnr(img_loss)}
     if skip_nonfinite:
-        finite = torch.stack([torch.isfinite(g).all() for g in grads])
-        ok = torch.isfinite(loss) & finite.all()
+        # one check over a flat copy of every gradient: a check a leaf costs a
+        # few launches a leaf (isfinite is several kernels on the card)
+        finite = torch.isfinite(torch.cat([g.reshape(-1) for g in grads])).all()
+        ok = torch.isfinite(loss) & finite
         if tp is not None:   # the model ranks hold other blocks of the fine field
             ok = all_true(ok, tp.group)
 
