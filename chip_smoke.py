@@ -282,12 +282,13 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
-def in_turns(runs):
+def in_turns(runs, min_iters=10):
     """Each of `runs` (name -> call) timed in SMALL_TURNS alternating turns (a, b, b, a, ...)
-    of about SMALL_TURN_MS by CUDA events, the launches of a turn calibrated first:
-    (medians, turns, launches a turn)."""
+    of about SMALL_TURN_MS by CUDA events (at least `min_iters` launches), the launches of
+    a turn calibrated first: (medians, turns, launches a turn)."""
     names = list(runs)
-    iters = {k: max(10, int(SMALL_TURN_MS / cuda_ms(fn, iters=5, warmup=2)))
+    iters = {k: max(min_iters, int(SMALL_TURN_MS / cuda_ms(fn, iters=min(5, min_iters),
+                                                          warmup=2)))
              for k, fn in runs.items()}
     turns = {k: [] for k in names}
     for turn in (names + names[::-1]) * (SMALL_TURNS // 2):
@@ -3441,104 +3442,427 @@ def examples_phase(failures, card, dev, tmp):
     return runs, shapes
 
 
+def field_row(failures, card, dev, gen, codes, tag, label, dtype, shape, seed, min_iters=10):
+    """The field kernel at `shape` (depth, width, rays, samples a ray; points with one
+    sample) with seeded weights and the random `codes` folded in, against its plain
+    version on the card (the error, at FIELD_TOL of `dtype`) and timed in turns with it
+    (CUDA events), beside its bound: bf16 products at PEAK_BF16, f32 ones as three TF32
+    products (and the FFMA bound beside), or the bytes."""
+    import torch
+
+    from mofanerf_tpu_torch.models.field import (FieldConfig, fold_conditioning,
+                                                 init_field_params)
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+
+    depth, width, n_rays, ns = shape
+    cfg = FieldConfig(depth=depth, width=width, compute_dtype=dtype)
+    params = init_field_params(gen, cfg, device=dev)
+    fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
+    w_dirs = params["view"]["w_dirs"]
+    pe, dirf = (point_inputs(cfg, w_dirs, n_rays, seed, dev) if ns == 1
+                else field_inputs(cfg, w_dirs, n_rays, ns, seed, dev))
+    dt_name = str(dtype).removeprefix("torch.")
+    with torch.no_grad():
+        got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, ns), -1)
+        torch.cuda.synchronize()
+        ref = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns), -1)
+        scale = max(1.0, float(ref.abs().max()))
+        tol, tol_rms = (t * scale for t in FIELD_TOL[dt_name])
+        diff = (got.float() - ref.float()).abs()
+        err, rms = float(diff.max()), float(diff.square().mean().sqrt())
+        med, turns, _ = in_turns({
+            "kernel": lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
+            "plain": lambda: fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns)},
+            min_iters=min_iters)
+    n_layers, n_rows = fused.w_stack.shape[0], n_rays * ns
+    ops_count = n_rows * field_flops_per_point(cfg, n_layers)
+    f32 = dtype == torch.float32
+    t_ops = 3 * ops_count / PEAK_TF32 * 1e3 if f32 else ops_count / PEAK_BF16 * 1e3
+    t_bytes = (field_io_bytes(cfg, n_rows, n_rays)
+               + field_weight_bytes(cfg, n_layers, 4 if f32 else 2)) / PEAK_BYTES * 1e3
+    row = {"ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": err,
+           "rms_err": rms, "rays": n_rays, "samples": ns, "turns_ms": turns}
+    extra = ""
+    if f32:
+        t_ffma = ops_count / PEAK_F32 * 1e3
+        row["ffma_bound_ms"] = max(t_ffma, t_bytes)
+        extra = f", FFMA {t_ffma:.5f}"
+    print(f"{tag} field {label} {depth}x{width} {dt_name} ({fk.kernel_config(cfg).width} wide "
+          f"in the kernel), {n_rays} rays x {ns}: max|kernel-plain| {err:.3e} rms {rms:.3e} "
+          f"(tol {tol:.3e} / {tol_rms:.3e}); kernel {med['kernel']:.4f} ms, plain "
+          f"{med['plain']:.4f} ms (medians of turns {turns}); bound {row['bound_ms']:.5f} ms by "
+          f"{row['bound_by']} (operations {t_ops:.5f}{extra}, bytes {t_bytes:.5f}) on {card}",
+          flush=True)
+    if not (err <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
+        fail(failures, f"{tag} field {label}: the kernel disagrees with its plain version")
+    return row
+
+
+def student_row(failures, card, dev, gen, tag, label, shape, o, d, white_bkgd, min_iters=10):
+    """The serving kernel for a seeded bf16 student of `shape` (depth, width, multires,
+    rays, samples a ray; sigma bias +1.5) on the rays (o, d) in the default box, against
+    its plain version on the card (rgb and acc at TOL) and timed in turns with it (CUDA
+    events), beside its bound over the rays that hit the box."""
+    import torch
+
+    from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
+    from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops.bounds import DEFAULT_AABB_MAX, DEFAULT_AABB_MIN
+
+    depth, width, mr, n_rays, ns = shape
+    cfg = StudentConfig(depth=depth, width=width, multires=mr, compute_dtype=torch.bfloat16)
+    params = init_student_params(gen, cfg, device=dev)
+    params["sigma"]["b"] = params["sigma"]["b"] + 1.5
+    pack = sk.pack_student(params, cfg)
+    aux, dirf = sk.ray_operands(pack, cfg, o, d, 8.0, 26.0, DEFAULT_AABB_MIN, DEFAULT_AABB_MAX)
+    n_hit = int((aux[:, 2] > 0).sum())
+    with torch.no_grad():
+        got = sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, white_bkgd)
+        torch.cuda.synchronize()
+        ref = sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, white_bkgd)
+        err = float((got[:, :4] - ref[:, :4]).abs().max())
+        med, turns, _ = in_turns({
+            "kernel": lambda: sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, white_bkgd),
+            "plain": lambda: sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, white_bkgd)},
+            min_iters=min_iters)
+    t_ops = n_hit * ns * flops_per_sample(depth, width, mr) / PEAK_BF16 * 1e3
+    t_bytes = kernel_bytes(n_rays, depth, width, mr, 2) / PEAK_BYTES * 1e3
+    row = {"ms": med["kernel"], "plain_ms": med["plain"], "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "max_abs_err": err,
+           "rays": n_rays, "hit_rays": n_hit, "samples": ns,
+           "design": "wgmma" if sk.uses_wgmma(cfg, ns) else "mma.sync", "turns_ms": turns}
+    print(f"{tag} student {label} {depth}x{width} mr{mr} bf16 ({row['design']}), {n_rays} rays "
+          f"({n_hit} hit the box) x {ns}: max|kernel-plain| rgb/acc {err:.3e} (tol "
+          f"{TOL['bfloat16']}); kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} ms "
+          f"(medians of turns {turns}); bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+          f"(operations over hit rays {t_ops:.5f}, bytes {t_bytes:.5f}) on {card}", flush=True)
+    if err > TOL["bfloat16"] or not bool(torch.isfinite(got).all()):
+        fail(failures, f"{tag} student {label}: the kernel disagrees with its plain version")
+    return row
+
+
 def examples_kernel_rows(failures, card, dev):
-    """The field and serving kernels at the studies' shapes, seeded weights, each against
-    its plain version on the card (the error) and timed in turns with it (CUDA events),
-    beside its bound: f32 fields of 8x64 (4096 rays x 32) and 8x128 (4096 x 64, the
-    union of 32 + 32) of a 64^2 teacher frame, and the 8x128 field at distill_morphable's
-    8192 points x 1; the avatar student (4x128, multires 10, bf16, 32 samples) at the
-    served frame's packets of 1024 rays, and the quick student (3x32, multires 6, bf16,
-    16 samples) at packets of 4096 rays, on the rays of a 64^2 frame of the studies'
-    camera grid (their hit share counted)."""
+    """The field and serving kernels at the studies' shapes (field_row, student_row):
+    f32 fields of 8x64 (4096 rays x 32) and 8x128 (4096 x 64, the union of 32 + 32) of a
+    64^2 teacher frame, and the 8x128 field at distill_morphable's 8192 points x 1; the
+    avatar student (4x128, multires 10, bf16, 32 samples) at the served frame's packets of
+    1024 rays, and the quick student (3x32, multires 6, bf16, 16 samples) at packets of
+    4096 rays, on the rays of a 64^2 frame of the studies' camera grid."""
     import torch
 
     from mofanerf_tpu_torch.datagen.multiview import camera_grid
-    from mofanerf_tpu_torch.models.field import (FieldConfig, fold_conditioning,
-                                                 init_field_params)
-    from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
-    from mofanerf_tpu_torch.ops import field_kernel as fk
-    from mofanerf_tpu_torch.ops import serve_kernel as sk
     from mofanerf_tpu_torch.ops.rays import get_rays
 
     rows = {}
     gen = torch.Generator().manual_seed(31)
     codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
-    for label, (depth, width, n_rays, ns) in EXAMPLE_FIELDS.items():
-        cfg = FieldConfig(depth=depth, width=width, compute_dtype=torch.float32)
-        params = init_field_params(gen, cfg, device=dev)
-        fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
-        w_dirs = params["view"]["w_dirs"]
-        pe, dirf = (point_inputs(cfg, w_dirs, n_rays, 33, dev) if ns == 1
-                    else field_inputs(cfg, w_dirs, n_rays, ns, 33, dev))
-        with torch.no_grad():
-            got = torch.cat(fk.fused_field_apply(fused, pe, dirf, cfg, ns), -1)
-            torch.cuda.synchronize()
-            ref = torch.cat(fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns), -1)
-            scale = max(1.0, float(ref.abs().max()))
-            tol, tol_rms = (t * scale for t in FIELD_TOL["float32"])
-            diff = (got - ref).abs()
-            err, rms = float(diff.max()), float(diff.square().mean().sqrt())
-            med, turns, _ = in_turns({
-                "kernel": lambda: fk.fused_field_apply(fused, pe, dirf, cfg, ns),
-                "plain": lambda: fk.fused_field_apply_ref(fused, pe, dirf, cfg, ns)})
-        n_layers, n_rows = fused.w_stack.shape[0], n_rays * ns
-        ops_count = n_rows * field_flops_per_point(cfg, n_layers)
-        t_tf32, t_ffma = 3 * ops_count / PEAK_TF32 * 1e3, ops_count / PEAK_F32 * 1e3
-        t_bytes = (field_io_bytes(cfg, n_rows, n_rays)
-                   + field_weight_bytes(cfg, n_layers, 4)) / PEAK_BYTES * 1e3
-        rows[label] = {"ms": med["kernel"], "plain_ms": med["plain"],
-                       "bound_ms": max(t_tf32, t_bytes),
-                       "bound_by": "operations" if t_tf32 >= t_bytes else "bytes",
-                       "ffma_bound_ms": max(t_ffma, t_bytes), "max_abs_err": err,
-                       "rays": n_rays, "samples": ns, "turns_ms": turns}
-        print(f"examples' field {label} {depth}x{width} f32 ({fk.kernel_config(cfg).width} wide "
-              f"in the kernel), {n_rays} rays x {ns}: max|kernel-plain| {err:.3e} rms "
-              f"{rms:.3e} (tol {tol:.3e} / {tol_rms:.3e}); kernel {med['kernel']:.4f} ms, plain "
-              f"{med['plain']:.4f} ms (medians of turns {turns}); bound "
-              f"{rows[label]['bound_ms']:.5f} ms by {rows[label]['bound_by']} (3xTF32 "
-              f"{t_tf32:.5f}, FFMA {t_ffma:.5f}, bytes {t_bytes:.5f}) on {card}", flush=True)
-        if not (err <= tol and rms <= tol_rms) or not bool(torch.isfinite(got).all()):
-            fail(failures, f"examples' field {label}: the kernel disagrees with its plain version")
-
+    for label, shape in EXAMPLE_FIELDS.items():
+        rows[label] = field_row(failures, card, dev, gen, codes, "examples'", label,
+                                torch.float32, shape, 33)
     K = torch.tensor([[150.0, 0, 32.0], [0, 150.0, 32.0], [0, 0, 1]], device=dev)
     c2w = torch.as_tensor(camera_grid()[47][:3], dtype=torch.float32, device=dev)
     ro, rd = (r.reshape(-1, 3) for r in get_rays(64, 64, K, c2w))
-    box = ((-3.0,) * 3, (3.0,) * 3)
-    for label, (depth, width, mr, packet, ns) in EXAMPLE_STUDENTS.items():
-        cfg = StudentConfig(depth=depth, width=width, multires=mr, compute_dtype=torch.bfloat16)
-        params = init_student_params(gen, cfg, device=dev)
-        params["sigma"]["b"] = params["sigma"]["b"] + 1.5
-        pack = sk.pack_student(params, cfg)
-        o, d = ro[:packet].contiguous(), rd[:packet].contiguous()
-        aux, dirf = sk.ray_operands(pack, cfg, o, d, 8.0, 26.0, *box)
-        n_hit = int((aux[:, 2] > 0).sum())
-        with torch.no_grad():
-            got = sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, False)
-            torch.cuda.synchronize()
-            ref = sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, False)
-            err = float((got[:, :4] - ref[:, :4]).abs().max())
-            med, turns, _ = in_turns({
-                "kernel": lambda: sk._serve_cuda(pack, aux, dirf, cfg, o, d, ns, False),
-                "plain": lambda: sk._serve_ref(pack, aux, dirf, cfg, o, d, ns, False)})
-        t_ops = n_hit * ns * flops_per_sample(depth, width, mr) / PEAK_BF16 * 1e3
-        t_bytes = kernel_bytes(packet, depth, width, mr, 2) / PEAK_BYTES * 1e3
-        rows[label] = {"ms": med["kernel"], "plain_ms": med["plain"],
-                       "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                       "max_abs_err": err, "rays": packet, "hit_rays": n_hit, "samples": ns,
-                       "design": "wgmma" if sk.uses_wgmma(cfg, ns) else "mma.sync",
-                       "turns_ms": turns}
-        print(f"examples' student {label} {depth}x{width} mr{mr} bf16 ({rows[label]['design']}), "
-              f"{packet} rays ({n_hit} hit the box) x {ns}: max|kernel-plain| rgb/acc {err:.3e} "
-              f"(tol {TOL['bfloat16']}); kernel {med['kernel']:.4f} ms, plain {med['plain']:.4f} "
-              f"ms (medians of turns {turns}); bound {rows[label]['bound_ms']:.5f} ms by "
-              f"{rows[label]['bound_by']} (operations over hit rays {t_ops:.5f}, bytes "
-              f"{t_bytes:.5f}) on {card}", flush=True)
-        if err > TOL["bfloat16"] or not bool(torch.isfinite(got).all()):
-            fail(failures, f"examples' student {label}: the kernel disagrees with its plain "
-                           f"version")
+    for label, shape in EXAMPLE_STUDENTS.items():
+        packet = shape[3]
+        rows[label] = student_row(failures, card, dev, gen, "examples'", label, shape,
+                                  ro[:packet].contiguous(), rd[:packet].contiguous(), False)
     return rows
 
+
+# the flagship chain (mofanerf_tpu_torch/examples), after the examples phase: the
+# full-width model trained on studydata/faces8 for FLAGSHIP_STEPS steps of its JAX run's
+# recipe (--device_data --white_bkgd) and evaluated on FLAGSHIP_EVAL_IDS identities, one
+# held-out view each; then on that checkpoint, all at once, each in its own process: the
+# chain's other scripts at their quick size (serve_flagship also with its default 4x128
+# student at FLAGSHIP_SERVE_STEPS distillation steps on one identity, so that the serving
+# kernel runs its throughput loop at that student's shape; refine_nerf_corpus with no input
+# floor, as a 300-step model's renders sit far under its 16 dB), and morphable_scaling over
+# the evaluation's JSON. (tag, study, argv, JSON written); @DATA, @BASE, @OUT, @PHOTOS, @EVAL
+# are filled in by the phase
+FLAGSHIP_DATA = os.path.join(REPO, "studydata", "faces8")
+FLAGSHIP_STEPS, FLAGSHIP_EVAL_IDS, FLAGSHIP_SERVE_STEPS = 300, 2, 300
+FLAGSHIP_TRAIN = ("morphable_flagship",
+                  ["--stage", "train", "--data", "@DATA", "--basedir", "@BASE",
+                   "--iters", str(FLAGSHIP_STEPS), "--device_data", "--white_bkgd",
+                   "--i_weights", str(FLAGSHIP_STEPS), "--i_testset", "1000000000"])
+FLAGSHIP_EVAL = ("morphable_flagship",
+                 ["--stage", "eval", "--data", "@DATA", "--basedir", "@BASE", "--white_bkgd",
+                  "--n_ids", str(FLAGSHIP_EVAL_IDS), "--n_test_views", "1",
+                  "--out_json", "@OUT/morphable_flagship.json"], "morphable_flagship.json")
+FLAGSHIP_MODEL = ["--data", "@DATA", "--basedir", "@BASE"]
+FLAGSHIP_RUNS = (
+    ("serve_quick", "serve_flagship",
+     FLAGSHIP_MODEL + ["--quick", "--white_bkgd", "--out_json", "@OUT/serve_flagship.json"],
+     "serve_flagship.json"),
+    ("serve_default", "serve_flagship",
+     FLAGSHIP_MODEL + ["--white_bkgd", "--ids", "0", "--n_test_views", "1", "--distill_steps",
+                       str(FLAGSHIP_SERVE_STEPS), "--out_json", "@OUT/serve_flagship.json"],
+     "serve_flagship.json"),
+    ("fit_quality", "fit_quality",
+     FLAGSHIP_MODEL + ["--quick", "--white_bkgd", "--out_dir", "@OUT/fit",
+                       "--out_json", "@OUT/fit_quality.json"], "fit_quality.json"),
+    ("expression_matrix", "expression_matrix",
+     FLAGSHIP_MODEL + ["--expname", "morphable_flagship", "--n_ids", "8", "--ids", "1",
+                       "--poses", "1", "--out_json", "@OUT/expression_matrix.json"],
+     "expression_matrix.json"),
+    ("refine_nerf_corpus", "refine_nerf_corpus",
+     FLAGSHIP_MODEL + ["--quick", "--white_bkgd", "--corpus_dir", "@OUT/corpus",
+                       "--min_input_psnr_db", "0", "--out_json", "@OUT/refine_nerf_quality.json"],
+     "refine_nerf_quality.json"),
+    ("refine_synthetic", "refine_synthetic",
+     ["--quick", "--out", "@OUT", "--artifacts", "@OUT/refine_quality.json"],
+     "refine_quality.json"),
+    ("wild_demo", "wild_demo",
+     FLAGSHIP_MODEL + ["--quick", "--photos", "@PHOTOS", "--work_dir", "@OUT/wild",
+                       "--out_json", "@OUT/wild_demo.json", "--out_png", "@OUT/wild_demo.png"],
+     "wild_demo.json"),
+    ("morphable_scaling", "morphable_scaling",
+     ["--artifacts_dir", "@EVAL", "--out_json", "@OUT/morphable_scaling.json"],
+     "morphable_scaling.json"),
+)
+FLAGSHIP_TIMEOUT = 300.0   # s for the train and eval process, and again for the rest together
+# the chain's shapes that earlier phases' rows lack: bf16 full-width fields (depth, width,
+# rays, samples a ray): fit_quality's 64^2 previews and views at packets of 4096 rays, and
+# serve_flagship --quick's distillation queries (batch 1024, one sample a point); bf16
+# students (depth, width, multires, rays, samples a ray): the throughput loop's 65536 rays
+# and the 128^2 frames' packets of 4096, of the default and the --quick student
+FLAGSHIP_FIELDS = {"preview coarse": (8, 256, 4096, 64), "preview fine": (10, 1024, 4096, 128),
+                   "distill quick": (10, 1024, 1024, 1)}
+FLAGSHIP_STUDENTS = {"loop": (4, 128, 10, 65536, 32), "frame": (4, 128, 10, 4096, 32),
+                     "quick loop": (3, 32, 6, 65536, 32), "quick frame": (3, 32, 6, 4096, 32)}
+# the B1 shapes whose rows earlier phases print (the teacher's packets, distillation's
+# queries, --fast's packets), for the launches by shape
+TABLED_FIELDS = {("bfloat16", 8, 256, 8192, 64), ("bfloat16", 10, 1024, 8192, 128),
+                 ("bfloat16", 10, 1024, 32768, 1), ("bfloat16", 10, 1024, 8192, 32)}
+
+
+def flagship_shape(label):
+    """The wrapper's launch_shapes key of a flagship kernel row."""
+    if label in FLAGSHIP_FIELDS:
+        return ("field", ("bfloat16",) + FLAGSHIP_FIELDS[label])
+    return ("serve", ("bfloat16",) + FLAGSHIP_STUDENTS[label])
+
+
+# runs of run_studies.run_study in one process, one after another (JSON list on argv),
+# each run's report printed as one JSON line
+FLAGSHIP_RUNNER = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from mofanerf_tpu_torch.examples.run_studies import run_study
+for study, argv in json.loads(sys.argv[1]):
+    print(json.dumps(run_study(study, argv)), flush=True)
+"""
+
+
+def _fill(argv, subs):
+    out = []
+    for a in argv:
+        for k, v in subs.items():
+            a = a.replace(k, v)
+        out.append(a)
+    return out
+
+
+def _photos_argv(argv, photos):
+    """wild_demo's argv: on `photos`, or without them (--flagship-only, no wild phase) on
+    one photo of the face family it writes itself."""
+    if photos is not None or "--photos" not in argv:
+        return argv
+    i = argv.index("--photos")
+    return argv[:i] + ["--synthetic_photos", "1"] + argv[i + 2:]
+
+
+def _flagship_procs(runs, tmp, dev, env):
+    """One process a run of `runs` ((tag, [(study, argv), ...])): {tag: (process, log)}."""
+    procs = {}
+    for tag, seq in runs:
+        log = open(os.path.join(tmp, f"{tag}.log"), "w")
+        seq = [(study, argv + ([] if study == "morphable_scaling" else ["--device", str(dev)]))
+               for study, argv in seq]
+        procs[tag] = (subprocess.Popen([sys.executable, "-c", FLAGSHIP_RUNNER, json.dumps(seq)],
+                                       cwd=REPO, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _flagship_reports(failures, procs, tmp, t_end):
+    """{tag: [run_study reports]} of the processes, each waited for until t_end; a process
+    that failed or timed out, and a run that raised, is a failure."""
+    reports = {}
+    try:
+        for tag, (proc, log) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, t_end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            with open(os.path.join(tmp, f"{tag}.log")) as f:
+                text = f.read()
+            lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"study"')]
+            bad = [r for r in lines if r["status"] != "ok"]
+            if rc != 0 or bad or not lines:
+                fail(failures, f"flagship: {tag} did not run to its end (rc {rc}, "
+                               f"{[r['status'] for r in bad]}): {text[-3000:]}")
+            reports[tag] = lines
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return reports
+
+
+def flagship_phase(failures, card, dev, tmp, photos):
+    """The flagship chain of mofanerf_tpu_torch/examples on the card, each script through
+    its main() as `python -m` runs it (run_studies.run_study: the field and serving
+    kernels' launches, total and by shape, zeroed just before its main() and read just
+    after): morphable_flagship trains the full-width model (8x256 + 10x1024, bf16, 64 +
+    64 samples, 1024 rays a step) on studydata/faces8 for FLAGSHIP_STEPS steps and
+    evaluates it (FLAGSHIP_EVAL), in one process; then FLAGSHIP_RUNS on its checkpoint at
+    once. For each: that it ran to its end with its gates, its JSON's top-level keys
+    (`_flagship.JSON_KEYS`), every reading finite, and its kernel launches: the
+    evaluation's field launches are 4 a 128^2 frame (two packets, both fields); every
+    script that renders the model launches the field kernel; serve_flagship launches the
+    serving kernel 33 times (a warm-up and 32 timed) at its student's loop shape, and
+    more on its frames. Returns ({tag: {...}}, launches by shape summed over the runs)."""
+    from mofanerf_tpu_torch.examples import _flagship
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    base, out = os.path.join(tmp, "flagship_logs"), os.path.join(tmp, "flagship")
+    os.makedirs(out, exist_ok=True)
+    subs = {"@DATA": FLAGSHIP_DATA, "@BASE": base, "@PHOTOS": photos or "",
+            "@EVAL": os.path.join(out, "eval")}
+    runs, shapes = {}, {"field": {}, "serve": {}}
+    eval_argv = _fill(FLAGSHIP_EVAL[1], dict(subs, **{"@OUT": os.path.join(out, "eval")}))
+    first = [("train", [(FLAGSHIP_TRAIN[0], _fill(FLAGSHIP_TRAIN[1], subs)),
+                        (FLAGSHIP_EVAL[0], eval_argv)])]
+    t0 = time.perf_counter()
+    reports = _flagship_reports(failures, _flagship_procs(first, out, dev, env), out,
+                                t0 + FLAGSHIP_TIMEOUT)
+    if len(reports.get("train", [])) != 2:
+        return runs, shapes
+    train_report, eval_report = reports["train"]
+    train_secs = time.perf_counter() - t0
+    with open(os.path.join(base, "morphable_flagship", "train_log.txt")) as f:
+        print("flagship: train_log.txt " + " | ".join(f.read().splitlines()[-4:]), flush=True)
+    with open(os.path.join(out, "train.log")) as f:
+        steps = [ln for ln in f.read().splitlines() if ln.startswith("[TRAIN]")]
+    print("flagship: " + " | ".join(steps[-2:]), flush=True)
+    rest = [(tag, [(study, _fill(_photos_argv(argv, photos),
+                                 dict(subs, **{"@OUT": os.path.join(out, tag)})))])
+            for tag, study, argv, _ in FLAGSHIP_RUNS]
+    t1 = time.perf_counter()
+    reports.update(_flagship_reports(failures, _flagship_procs(rest, out, dev, env), out,
+                                     t1 + FLAGSHIP_TIMEOUT))
+    reports["train"] = [train_report]
+    reports["eval"] = [eval_report]
+    print(f"flagship: train + eval {train_secs:.1f} s; the rest at once "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    json_of = {"eval": (os.path.join(out, "eval"), FLAGSHIP_EVAL[2], "morphable_flagship")}
+    json_of.update({tag: (os.path.join(out, tag), name, study)
+                    for tag, study, _, name in FLAGSHIP_RUNS})
+    for tag, rep in reports.items():
+        if not rep:
+            continue
+        rep = rep[0]
+        for name, rows in rep["launch_shapes"].items():
+            for *shape, n in rows:
+                shapes[name][tuple(shape)] = shapes[name].get(tuple(shape), 0) + n
+        entry = {"secs": rep["wall_secs"], "launches": rep["launches"],
+                 "launch_shapes": rep["launch_shapes"], "timing": rep["timing"]}
+        if tag in json_of:
+            d, name, study = json_of[tag]
+            with open(os.path.join(d, name)) as f:
+                written = json.load(f)
+            keys_ok = set(written) == _flagship.JSON_KEYS[study]
+            finite = _finite_readings(written)
+            device_ok = study == "morphable_scaling" or written.get("device") == card
+            entry.update(json=written, keys_ok=keys_ok, finite=finite)
+            if not (keys_ok and finite and device_ok):
+                fail(failures, f"flagship: {tag}: keys {keys_ok} ({sorted(written)}), finite "
+                               f"{finite}, device {written.get('device')!r}")
+        runs[tag] = entry
+        print(f"flagship: {tag} {rep['argv'][:12]}: {rep['wall_secs']:.1f} s; field kernel "
+              f"launches {rep['launches'][0]}, serving kernel {rep['launches'][1]}; by shape "
+              f"{json.dumps(rep['launch_shapes'])}; timing {json.dumps(rep['timing'])}; "
+              f"{json.dumps(entry.get('json'))[:1500]}; on {card}", flush=True)
+    if "eval" in runs:
+        j = runs["eval"]["json"]
+        frames = (sum(v["n_views"] for v in j["per_identity"].values()) + len(j["per_identity"])
+                  + len(j["cross_identity"]) + len(j["identity_interpolation"])
+                  + 2 * sum(e["n_views"] for e in j["expression_control"]))
+        if runs["eval"]["launches"] != [4 * frames, 0]:
+            fail(failures, f"flagship: eval launched {runs['eval']['launches']}, expected "
+                           f"[{4 * frames}, 0] for {frames} frames at 128^2")
+    for tag in ("serve_quick", "serve_default", "fit_quality", "expression_matrix",
+                "refine_nerf_corpus", "wild_demo"):
+        if tag in runs and runs[tag]["launches"][0] <= 0:
+            fail(failures, f"flagship: {tag} launched no field kernel")
+    for tag, label in (("serve_quick", "quick loop"), ("serve_default", "loop")):
+        if tag not in runs:
+            continue
+        part, shape = flagship_shape(label)
+        got = dict((tuple(r[:-1]), r[-1]) for r in runs[tag]["launch_shapes"]["serve"])
+        loop = runs[tag]["timing"]["throughput_loop"]
+        if got.get(shape) != 33 or loop["launches_counted"] != 33 \
+                or runs[tag]["launches"][1] <= 33:
+            fail(failures, f"flagship: {tag}: serving launches at {shape} {got.get(shape)} "
+                           f"(expected 33), loop counted {loop['launches_counted']}, all "
+                           f"{runs[tag]['launches'][1]}")
+        print(f"flagship: {tag}: serving kernel loop {loop['launches']} x {loop['rays']} rays x "
+              f"{loop['samples']} samples of the {loop['student']} student: {loop['secs']:.4f} "
+              f"s, {loop['rays_per_sec']:.4e} rays/s (CUDA events) on {card}", flush=True)
+    for label in (*FLAGSHIP_FIELDS, *FLAGSHIP_STUDENTS):
+        part, shape = flagship_shape(label)
+        print(f"flagship: {part} kernel launches at the {label} row's shape {shape}: "
+              f"{shapes[part].get(shape, 0)}", flush=True)
+        if not shapes[part].get(shape):
+            fail(failures, f"flagship: no {part} kernel launch at {shape}")
+    untabled = {s: n for s, n in shapes["field"].items()
+                if s not in TABLED_FIELDS and s[1:] not in FLAGSHIP_FIELDS.values()}
+    print(f"flagship: field kernel launches at shapes without a row: {untabled}", flush=True)
+    return runs, shapes
+
+
+def flagship_kernel_rows(failures, card, dev):
+    """The field and serving kernels at the flagship chain's new shapes (field_row,
+    student_row; turns of at least 2 launches, since the plain fine field takes ~0.7 s a
+    call): the full-width bf16 fields of FLAGSHIP_FIELDS, and the students of
+    FLAGSHIP_STUDENTS over white on the rays of the faces8 camera at a held-out pose: the
+    first 65536 of a 256^2 frame for the loop shapes, the middle 32 rows of a 128^2 frame
+    for the frame shapes."""
+    import torch
+
+    from mofanerf_tpu_torch.ops.rays import get_rays, pose_spherical
+
+    rows = {}
+    gen = torch.Generator().manual_seed(37)
+    codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
+    for label, shape in FLAGSHIP_FIELDS.items():
+        rows[label] = field_row(failures, card, dev, gen, codes, "flagship's", label,
+                                torch.bfloat16, shape, 39, min_iters=2)
+    with open(os.path.join(FLAGSHIP_DATA, "transforms_test_0.json")) as f:
+        angle = json.load(f)["camera_angle_x"]
+    c2w = torch.as_tensor(pose_spherical(20.0, -10.0, 16.0)[:3], dtype=torch.float32,
+                          device=dev)
+    rays = {}
+    for side in (128, 256):
+        focal = 0.5 * side / np.tan(0.5 * angle)
+        K = torch.tensor([[focal, 0, side / 2], [0, focal, side / 2], [0, 0, 1]],
+                         dtype=torch.float32, device=dev)
+        rays[side] = [r.reshape(-1, 3) for r in get_rays(side, side, K, c2w)]
+    for label, shape in FLAGSHIP_STUDENTS.items():
+        n_rays = shape[3]
+        ro, rd = rays[256] if n_rays > 4096 else rays[128]
+        lo = 0 if n_rays > 4096 else 48 * 128
+        rows[label] = student_row(failures, card, dev, gen, "flagship's", label, shape,
+                                  ro[lo:lo + n_rays].contiguous(),
+                                  rd[lo:lo + n_rays].contiguous(), True, min_iters=2)
+    return rows
 
 def train_step_timing(failures, card, dev, final, cfg, batches):
     """The full-width train step (configs/exp_mofanerf.txt: 8x256 + 10x1024, 64 + 64
@@ -4060,6 +4384,7 @@ def world_main(n, card, dev) -> int:
 
 def main(argv) -> int:
     kernel_only = "--kernel-only" in argv
+    flagship_only = "--flagship-only" in argv
     world = int(argv[argv.index("--world") + 1]) if "--world" in argv else None
     import torch
 
@@ -4106,6 +4431,16 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     if world:
         return 1 if failures else world_main(world, card, dev)
+    if flagship_only:
+        with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
+            t0 = time.perf_counter()
+            flagship_phase(failures, card, dev, work, None)
+            print(f"path phase (flagship chain): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        flagship_kernel_rows(failures, card, dev)
+        print(f"kernel phase (the flagship chain's shapes): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return 1 if failures else 0
     t0 = time.perf_counter()
     rows = kernel_phase(failures, dev)
     print(f"kernel phase (serving kernel): {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4175,9 +4510,19 @@ def main(argv) -> int:
         examples, example_shapes = examples_phase(failures, card, dev, work)
         print(f"path phase (examples: the eight synthetic-data studies): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        flagship, flagship_shapes = flagship_phase(failures, card, dev, work,
+                                                   os.path.join(work, "wild"))
+        print(f"path phase (flagship chain: morphable_flagship trained on studydata/faces8 "
+              f"and evaluated, the chain's scripts on its checkpoint): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     example_rows = examples_kernel_rows(failures, card, dev)
     print(f"kernel phase (the studies' shapes): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    flagship_rows = flagship_kernel_rows(failures, card, dev)
+    print(f"kernel phase (the flagship chain's shapes): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"convert": converted}), flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
@@ -4188,6 +4533,7 @@ def main(argv) -> int:
     print(json.dumps({"formats": formats}), flush=True)
     print(json.dumps({"multi_card": dict(multi, card=card)}), flush=True)
     print(json.dumps({"examples": dict(examples, card=card)}), flush=True)
+    print(json.dumps({"flagship": dict(flagship, card=card)}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} failure(s)", file=sys.stderr)
         return 1
@@ -4207,16 +4553,21 @@ def main(argv) -> int:
                       "formats_fit": formats["fit_launches"] // 2,
                       "formats_train": formats["train_launches"] // 2,
                       "convert": converted["launches"] // 2,
-                      "sharded_teacher": multi["teacher_launches"] // 2}
+                      "sharded_teacher": multi["teacher_launches"] // 2,
+                      # the flagship chain's 128^2 and 256^2 frames (the coarse field's count)
+                      "flagship": flagship_shapes["field"].get(
+                          ("bfloat16", 8, 256, PACKET, 64), 0)}
     slice_launches = {   # the later slices' paths, by the field kernel's shape
         "distill": sum(launched[k]["field"] for k in
-                       ("--distill", "--distill_cond", "--distill_avatars")),
+                       ("--distill", "--distill_cond", "--distill_avatars"))
+        + flagship_shapes["field"].get(("bfloat16", 10, 1024) + SLICE_SHAPES["distill"], 0),
         "fast": launched["--fast"]["field"] + fit_launched["evaluate --fast"]
         + fit_launched["export_grids' grid through render_frame_fast"]
         + refined["launches"]["refine_corpus --fast"]}
     serve_by_path = {"serving": launches,
                      "distill": sum(v["serve"] for v in launched.values()),
-                     "sharded_serve": multi["serve_launches"]}
+                     "sharded_serve": multi["serve_launches"],
+                     "flagship": sum(flagship_shapes["serve"].values())}
     field_entries = []
     for name, (depth, width, _) in FIELDS.items():
         row = field_rows[(name, "bfloat16")]   # the dtype the teacher path runs
@@ -4322,6 +4673,25 @@ def main(argv) -> int:
             "launches": launches, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    # the flagship chain's shapes: their launches in the flagship phase's runs
+    for label, row in flagship_rows.items():
+        part, shape = flagship_shape(label)
+        if label in FLAGSHIP_FIELDS:
+            depth, width, n_rays, ns = FLAGSHIP_FIELDS[label]
+            name = f"fused_field_apply[flagship {label} {depth}x{width} bf16, {n_rays}x{ns}]"
+            source = "mofanerf_tpu_torch/csrc/field_kernel.cu"
+            replaces = "mofanerf_tpu/ops/pallas_field.py:238"
+        else:
+            depth, width, mr, n_rays, ns = FLAGSHIP_STUDENTS[label]
+            name = (f"render_rays_bounded_fused[flagship {label} {depth}x{width} mr{mr} bf16, "
+                    f"{n_rays}x{ns}]")
+            source = f"mofanerf_tpu_torch/csrc/serve_kernel_{row['design'].split('.')[0]}.cuh"
+            replaces = "mofanerf_tpu/ops/pallas_serve.py:221"
+        field_entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": flagship_shapes[part].get(shape, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": field_entries + [{
         "name": "render_rays_bounded_fused",
         "route": "cuda",

@@ -5,8 +5,12 @@ report each one's wall time and the two kernels' launches.
         "dmorph distill_morphable" "dexp distill_expression --flagship" ...
 
 Each argument is `tag study [flags...]`; the study runs as `--out DIR/tag`
-(the expression and texture studies take it as their first argument) with
-its flags. The kernels are built once, before the first study. Each study
+(the expression and texture studies take it as their first argument; the
+flagship chain's studies write their JSON and their working files under
+DIR/tag, see `study_argv`) with its flags. `--basedir B` passes the flagship
+run's directory (where morphable_flagship trains, and where the others read
+its checkpoint) to the chain's studies. The kernels are built once, before
+the first study. Each study
 runs through `run_study`. A study that raises (a gate) is reported and the
 next one runs. Prints one `[STUDY]` JSON line a study, and writes them all
 to `DIR/studies.json`.
@@ -35,6 +39,35 @@ from mofanerf_tpu_torch.ops import field_kernel as fk
 from mofanerf_tpu_torch.ops import serve_kernel as sk
 
 POSITIONAL_OUT = ("expression_synthetic", "texture_synthetic")
+# the flagship chain's studies: the JSON each writes, and its flags for working files
+FLAGSHIP_OUT = {
+    "morphable_flagship": ("morphable_flagship.json", {}),
+    "serve_flagship": ("serve_flagship.json", {}),
+    "fit_quality": ("fit_quality.json", {"--out_dir": "fit"}),
+    "expression_matrix": ("expression_matrix.json", {}),
+    "refine_nerf_corpus": ("refine_nerf_quality.json", {"--corpus_dir": "corpus"}),
+    "wild_demo": ("wild_demo.json", {"--work_dir": "wild", "--out_png": "wild_demo.png"}),
+}
+
+
+def study_argv(study: str, out: str, flags: list, basedir: str | None = None) -> list:
+    """The argv of a study run with its outputs under `out`: `--out out` (the expression
+    and texture studies take it positionally); refine_synthetic's JSON as `--artifacts`;
+    the flagship chain's `--out_json` and working directories under `out`, and
+    `--basedir` when given; morphable_scaling's `--out_json`."""
+    if study in POSITIONAL_OUT:
+        return [out] + flags
+    if study == "refine_synthetic":
+        return ["--out", out, "--artifacts", os.path.join(out, "refine_quality.json")] + flags
+    if study == "morphable_scaling":
+        return ["--out_json", os.path.join(out, "morphable_scaling.json")] + flags
+    if study in FLAGSHIP_OUT:
+        name, dirs = FLAGSHIP_OUT[study]
+        argv = ["--out_json", os.path.join(out, name)]
+        for flag, sub in dirs.items():
+            argv += [flag, os.path.join(out, sub)]
+        return argv + (["--basedir", basedir] if basedir else []) + flags
+    return ["--out", out] + flags
 
 
 def _sync() -> None:
@@ -75,6 +108,8 @@ def main(argv=None) -> list:
     p.add_argument("runs", nargs="+", help='"tag study [flags...]"')
     p.add_argument("--teacher_seed", type=int, default=0)
     p.add_argument("--exact_bf16_sums", action="store_true")
+    p.add_argument("--basedir", default=None,
+                   help="the flagship run's directory, passed to the chain's studies")
     args = p.parse_args(argv)
     if args.teacher_seed:
         _scenes.train_teacher = functools.partial(_scenes.train_teacher, seed=args.teacher_seed)
@@ -85,12 +120,13 @@ def main(argv=None) -> list:
     t0 = time.perf_counter()
     cuda_build.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    os.makedirs(args.out, exist_ok=True)
     rows = []
     for run in args.runs:
         tag, study, *flags = run.split()
         out = os.path.join(args.out, tag)
-        rows.append(dict(run_study(study, ([out] if study in POSITIONAL_OUT
-                                           else ["--out", out]) + flags), tag=tag))
+        rows.append(dict(run_study(study, study_argv(study, out, flags, args.basedir)),
+                         tag=tag))
         print("[STUDY] " + json.dumps(rows[-1]), flush=True)
         with open(os.path.join(args.out, "studies.json"), "w") as f:
             json.dump(rows, f, indent=1)

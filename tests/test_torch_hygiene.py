@@ -75,7 +75,16 @@ def test_every_module_imports_with_jax_blocked():
             "mofanerf_tpu_torch.utils.profiling", "mofanerf_tpu_torch.ops.uv_sample",
             "mofanerf_tpu_torch.parallel", "mofanerf_tpu_torch.parallel.mesh",
             "mofanerf_tpu_torch.parallel.collectives", "mofanerf_tpu_torch.parallel.world",
-            "mofanerf_tpu_torch.parallel.dryrun"} <= set(mods)
+            "mofanerf_tpu_torch.parallel.dryrun",
+            "mofanerf_tpu_torch.examples._flagship",
+            "mofanerf_tpu_torch.examples.morphable_flagship",
+            "mofanerf_tpu_torch.examples.serve_flagship",
+            "mofanerf_tpu_torch.examples.fit_quality",
+            "mofanerf_tpu_torch.examples.expression_matrix",
+            "mofanerf_tpu_torch.examples.refine_synthetic",
+            "mofanerf_tpu_torch.examples.refine_nerf_corpus",
+            "mofanerf_tpu_torch.examples.wild_demo",
+            "mofanerf_tpu_torch.examples.morphable_scaling"} <= set(mods)
     code = f"""
 import sys
 
