@@ -216,6 +216,10 @@ FIT_WARMUP, FIT_TIMED, FIT_PROFILED = 2, 6, 3
 # the RefineNet phase: the corpus's render side, the refiner's side (loadSize), its
 # training steps and the steady step's timed steps
 REFINE_RES, REFINE_SIDE, REFINE_STEPS, REFINE_TIMED = 256, 512, 10, 6
+# its WebP route: the committed pair tree (lossy renders, lossless ground truth) and the
+# refiner's steps on it before the resume; the shape of the instance-norm gradient check
+REFINE_WEBP_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "refine_webp")
+REFINE_WEBP_STEPS, NORM_CHECK_SHAPE = 4, (1, 64, 32, 32)
 # the wild-photo phase: the face family's side, identities, expressions, every k-th view of
 # 120 and held-out views an expression; photo A's canvas (w, h) and its similarity (degrees,
 # scale); run_fit's iterations; the mean |A - B| allowed between the two aligned photos
@@ -226,20 +230,23 @@ WILD_CANVAS, WILD_WARP, WILD_FIT_ITERS, WILD_AB_TOL = (640, 480), (12.0, 0.75), 
 DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
 # the image formats phase: the committed files, run_fit's iterations on D's relit photo,
 # run_train's steps with the progressive UV map, (progressive, baseline) pairs of turns of
-# the 1024^2 photo's decode
+# the 1024^2 photo's decode (and of the WebP photo's against the WebP face render's)
 FORMATS_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "formats")
 FORMATS_FIT_ITERS, FORMATS_TRAIN_STEPS, FORMATS_DECODE_TURNS = 10, 2, 2
+FORMATS_WEBP = {"lossy": "photo_1024_q80.webp", "lossless": "face_512_lossless.webp"}
 
 # the examples phase (mofanerf_tpu_torch/examples), after the formats phase: distill_morphable
 # at half its JAX budgets (3000 + 9000 steps took over the 150 s given it on the card), the
 # other seven at their quick size: --quick (distill_synthetic's teacher cut to 400 steps of its
-# 2000), or --iters 400 where the JAX script has no --quick. (study, argv, JSON written)
+# 2000), or --iters 400 where the JAX script has no --quick; texture_synthetic at 800 of its 2500,
+# since at 400 its teacher often still renders empty and fails the colour gates (PERF.md, PR 16);
+# it still ends before distill_morphable. (study, argv, JSON written)
 EXAMPLES_RUNS = (
     ("distill_morphable", ["--out", "@OUT", "--iters", "1500", "--distill_steps", "4500"],
      "avatar_student_quality.json"),
     ("train_synthetic", ["--out", "@OUT", "--iters", "400"], "train_synthetic.json"),
     ("expression_synthetic", ["@OUT", "--iters", "400"], "expression_synthetic.json"),
-    ("texture_synthetic", ["@OUT", "--iters", "400"], "texture_synthetic.json"),
+    ("texture_synthetic", ["@OUT", "--iters", "800"], "texture_synthetic.json"),
     ("morphable_synthetic", ["--out", "@OUT", "--iters", "400"], "morphable_synthetic.json"),
     ("distill_synthetic", ["--out", "@OUT", "--quick", "--iters", "400"], "distill_quality.json"),
     ("distill_expression", ["--out", "@OUT", "--quick"], "cond_student_quality.json"),
@@ -2540,7 +2547,125 @@ def refine_phase(failures, card, dev, render_flags, tmp):
           f"{g_fwd / PEAK_F32 * 1e3:.2f} ms at f32 peak)", flush=True)
     if len(refined) != len(frames) or sizes != {(REFINE_SIDE, REFINE_SIDE)}:
         fail(failures, f"run_refine: {len(refined)} of {len(frames)} frames, sizes {sizes}")
+
+    # 8. the WebP route; 9. the instance norm's gradient in this torch
+    out["webp"] = refine_webp_route(failures, card, dev, tmp, vgg_path)
+    out["instance_norm_grad"] = instance_norm_check(dev)
     return out
+
+
+def _digest(a):
+    """SHA-256 of an array's values, as the fixtures' manifests hash them (bool
+    as 0 / 1 bytes)."""
+    import hashlib
+    a = np.ascontiguousarray(a, np.uint8 if a.dtype == bool else a.dtype)
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def refine_webp_route(failures, card, dev, tmp, vgg_path):
+    """RefineNet on WebP files at the phase's full width: the committed pair
+    tree (renders lossy, ground truth lossless) read against its manifest
+    (imageio's shape, dtype and SHA-256, re-derived by tests/test_torch_webp.py
+    on the CPU) and header sizes; run_train_refinenet on it for
+    REFINE_WEBP_STEPS steps (each draw decodes its pair) and a resume;
+    run_refine over a flat directory of the WebP renders."""
+    import glob
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.cli import run_refine, run_train_refinenet
+    from mofanerf_tpu_torch.utils.image_io import image_size, imread
+
+    with open(os.path.join(REFINE_WEBP_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    off, ms = [], {}
+    for rel, entry in sorted(manifest.items()):
+        path = os.path.join(REFINE_WEBP_DIR, rel)
+        t0 = time.perf_counter()
+        arr = imread(path)
+        ms[rel] = (time.perf_counter() - t0) * 1e3
+        if [list(arr.shape), str(arr.dtype), _digest(arr)] != \
+                [entry["shape"], entry["dtype"], entry["sha256"]] \
+                or list(image_size(path)) != entry["shape"][:2]:
+            off.append(rel)
+    kinds = {}
+    for rel in manifest:                         # the first chunk: lossy renders, lossless truth
+        with open(os.path.join(REFINE_WEBP_DIR, rel), "rb") as f:
+            kinds[rel.split("/")[0]] = f.read(16)[12:16]
+    print(f"refine webp: {len(manifest)} committed pair-tree files (train {kinds.get('train')}, "
+          f"gt {kinds.get('gt')}) decoded on the host against their manifest: "
+          f"{len(manifest) - len(off)} equal, differing {off}; ms a file "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
+    if off or len(manifest) < 8 or kinds != {"train": b"VP8 ", "gt": b"VP8L"}:
+        fail(failures, f"refine webp: pair-tree files differing {off}, kinds {kinds}")
+    root = os.path.join(tmp, "refine_webp")
+    shutil.copytree(REFINE_WEBP_DIR, root, ignore=shutil.ignore_patterns("manifest.json"))
+    ckpts = os.path.join(tmp, "refine_webp_ckpt")
+    argv = ["--dataroot", root, "--checkpoints_dir", ckpts, "--vgg_weights", vgg_path,
+            "--loadSize", str(REFINE_SIDE), "--display_freq", "1", "--device", str(dev)]
+    _, _, sec = quiet(lambda: run_train_refinenet.main(
+        argv + ["--max_steps", str(REFINE_WEBP_STEPS)]))
+    with open(os.path.join(ckpts, "refine", "loss_log.txt")) as f:
+        losses = [float(ln.split("loss_G: ")[1].split()[0]) for ln in f if ln.startswith("(epoch")]
+    _, text, resume_sec = quiet(lambda: run_train_refinenet.main(
+        argv + ["--continue_train", "--max_steps", str(REFINE_WEBP_STEPS + 2)]))
+    saved = sorted(os.listdir(os.path.join(ckpts, "refine", "checkpoints")))
+    print(f"refine webp: run_train_refinenet {REFINE_WEBP_STEPS} steps at {REFINE_SIDE}^2 on "
+          f"the WebP pairs in {sec:.2f} s with start-up; loss_G {[round(v, 3) for v in losses]}; "
+          f"resumed to {REFINE_WEBP_STEPS + 2} in {resume_sec:.2f} s; checkpoints {saved}",
+          flush=True)
+    if (len(losses) != REFINE_WEBP_STEPS or not np.isfinite(losses).all()
+            or f"resumed at step {REFINE_WEBP_STEPS}" not in text
+            or f"{REFINE_WEBP_STEPS + 2:06d}.pt" not in saved):
+        fail(failures, f"refine webp: run_train_refinenet losses {losses}, checkpoints {saved}")
+    flat = os.path.join(tmp, "refine_webp_frames", "nerf")
+    os.makedirs(flat)
+    renders = sorted(glob.glob(os.path.join(root, "train", "*", "*", "*.webp")))
+    for k, path in enumerate(renders):
+        shutil.copy(path, os.path.join(flat, f"{k:03d}.webp"))
+    paths, _, refine_sec = quiet(lambda: run_refine.main(
+        ["--nerf_folder", flat, "--checkpoints_dir", ckpts, "--loadSize", str(REFINE_SIDE),
+         "--device", str(dev)]))
+    sizes = {image_size(p) for p in paths}
+    print(f"refine webp: run_refine over {len(renders)} flat WebP renders -> {len(paths)} frames "
+          f"at {sizes} in {refine_sec:.2f} s with start-up on {card}", flush=True)
+    if len(paths) != len(renders) or not renders or sizes != {(REFINE_SIDE, REFINE_SIDE)}:
+        fail(failures, f"refine webp: run_refine wrote {len(paths)} of {len(renders)}, {sizes}")
+    torch.cuda.synchronize()
+    return {"files": len(manifest), "files_differing": off, "decode_ms": ms, "train_s": sec,
+            "losses_G": losses, "resume_s": resume_sec, "refine_s": refine_sec,
+            "refined": len(paths)}
+
+
+def instance_norm_check(dev):
+    """`F.instance_norm`'s input gradient against the written-out norm of
+    models/refine/generator.py (the one the port runs), for an incoming
+    gradient contiguous and channels-last, on the card and on this machine's
+    CPU (PyTorch 2.13's CPU backward is wrong for a channels-last gradient at
+    batch 1): the largest absolute difference, and the gradient's scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from mofanerf_tpu_torch.models.refine.generator import InstanceNorm
+
+    gen = torch.Generator().manual_seed(11)
+    x0 = torch.randn(NORM_CHECK_SHAPE, generator=gen)
+    g0 = torch.randn(NORM_CHECK_SHAPE, generator=gen)
+    errs = {}
+    for device in (str(dev), "cpu"):
+        for layout in ("contiguous", "channels_last"):
+            x = x0.to(device).requires_grad_(True)
+            g = g0.to(device)
+            if layout == "channels_last":
+                g = g.contiguous(memory_format=torch.channels_last)
+            (a,) = torch.autograd.grad(F.instance_norm(x, eps=1e-5), x, g)
+            (b,) = torch.autograd.grad(InstanceNorm()(x), x, g)
+            errs[f"{device} {layout}"] = (float((a - b).abs().max()), float(b.abs().max()))
+    print(f"refine: F.instance_norm's input gradient against the written-out norm at "
+          f"{NORM_CHECK_SHAPE} (max |difference|, max |gradient|) in torch {torch.__version__}: "
+          + "; ".join(f"{k} {v[0]:.3g} of {v[1]:.3g}" for k, v in errs.items()), flush=True)
+    return errs
 
 
 def device_data_phase(failures, card, dev, render_flags, tmp):
@@ -3174,7 +3299,6 @@ def formats_phase(failures, card, dev, render_flags, tmp):
     replaced by the progressive one, its held-out render counted. Both paths
     count the field kernel's launches with the count zeroed just before and
     read just after."""
-    import hashlib
     import re
     import shutil
 
@@ -3185,10 +3309,6 @@ def formats_phase(failures, card, dev, render_flags, tmp):
     from mofanerf_tpu_torch.ops import field_kernel as fk
     from mofanerf_tpu_torch.utils.image_io import image_size, imread
 
-    def digest(a):   # as the manifest hashes: bool as 0 / 1 bytes
-        a = np.ascontiguousarray(a, np.uint8 if a.dtype == bool else a.dtype)
-        return hashlib.sha256(a.tobytes()).hexdigest()
-
     # ---- 1. every committed file against its manifest
     with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
         manifest = json.load(f)
@@ -3198,11 +3318,12 @@ def formats_phase(failures, card, dev, render_flags, tmp):
         t0 = time.perf_counter()
         arr = imread(path)
         decode_ms[name] = (time.perf_counter() - t0) * 1e3
-        if [list(arr.shape), str(arr.dtype), digest(arr)] != \
+        if [list(arr.shape), str(arr.dtype), _digest(arr)] != \
                 [entry["shape"], entry["dtype"], entry["sha256"]] \
                 or list(image_size(path)) != entry["shape"][:2]:
             off.append(name)
-    print(f"formats: {len(manifest)} committed files (PNG, BMP, progressive and baseline JPEG) "
+    print(f"formats: {len(manifest)} committed files (PNG, BMP, progressive and baseline JPEG, "
+          f"WebP lossy, lossless, with alpha and animated) "
           f"decoded on the host against their manifest: {len(manifest) - len(off)} equal by "
           f"SHA-256, shape, dtype and header size, differing {off}; ms a file "
           + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items()), flush=True)
@@ -3223,6 +3344,21 @@ def formats_phase(failures, card, dev, render_flags, tmp):
           f"megapixel, baseline {ms_mpx['baseline']:.1f} ms a megapixel "
           f"({ms_mpx['progressive'] / ms_mpx['baseline']:.2f}x); all turns (ms) {turns}; "
           f"host of {card}", flush=True)
+    # the WebP decode: the 1024^2 photo re-encoded lossy at quality 80 against the 512^2
+    # face render lossless, in turns
+    webp_turns = {k: [] for k in FORMATS_WEBP}
+    pixels = {}
+    for k in ("lossy", "lossless", "lossless", "lossy") * FORMATS_DECODE_TURNS:
+        t0 = time.perf_counter()
+        arr = imread(os.path.join(FORMATS_DIR, FORMATS_WEBP[k]))
+        webp_turns[k].append((time.perf_counter() - t0) * 1e3)
+        pixels[k] = arr.shape[0] * arr.shape[1]
+    webp_ms_mpx = {k: float(np.median(v)) / (pixels[k] / 1e6) for k, v in webp_turns.items()}
+    print(f"formats: WebP decode on the host, median of {2 * FORMATS_DECODE_TURNS} in turns: "
+          f"lossy (VP8) {FORMATS_WEBP['lossy']} {webp_ms_mpx['lossy']:.1f} ms a megapixel, "
+          f"lossless (VP8L) {FORMATS_WEBP['lossless']} {webp_ms_mpx['lossless']:.1f} ms a "
+          f"megapixel; beside JPEG progressive {ms_mpx['progressive']:.1f}, baseline "
+          f"{ms_mpx['baseline']:.1f}; all turns (ms) {webp_turns}; host of {card}", flush=True)
 
     # ---- 2. wild_preprocess with the progressive photo D beside A-C, then run_fit on D
     wild = os.path.join(tmp, "wild_formats")
@@ -3304,6 +3440,7 @@ def formats_phase(failures, card, dev, render_flags, tmp):
                        f"launches (expected {want_train}), losses {train_losses}")
     return {"files": len(manifest), "files_differing": off, "decode_ms": decode_ms,
             "photo_ms_a_megapixel": ms_mpx, "photo_turns_ms": turns,
+            "webp_ms_a_megapixel": webp_ms_mpx, "webp_turns_ms": webp_turns,
             "wild_cli_s": cli_sec, "d_vs_b_mean_abs_diff": db_diff, "fit_s": fit_sec,
             "fit_losses": losses, "fit_launches": fit_launches, "train_s": train_sec,
             "train_losses": train_losses, "train_launches": train_launches, "card": card}

@@ -3,9 +3,9 @@ mofanerf_tpu/config.py, with torch dtypes in `model_spec`).
 
 Reads the reference's `key = value  # comment` config-file format, so the
 shipped `configs/exp_mofanerf.txt` works unchanged. Flag names match the
-reference's where a counterpart exists. Flags of parts that are not ported
-yet (training, the device-resident data pipeline, occupancy maintenance) are
-kept so that one config file serves both packages.
+reference's where a counterpart exists, and every flag of the JAX package's
+config is kept (training, the device-resident data pipeline and occupancy
+upkeep read theirs), so that one config file serves both packages.
 """
 from __future__ import annotations
 

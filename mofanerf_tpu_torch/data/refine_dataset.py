@@ -3,7 +3,7 @@
 B = ground truth, paired by sorted order. Training walks the id/exp tree
 that `render_refine_trainset` writes; inference reads a flat directory.
 Images load to float32 in [-1, 1] at load_size (a bicubic resize, clipped),
-through the port's PNG / baseline-JPEG reader.
+through the port's reader of every PNG, JPEG, BMP and WebP imageio reads.
 """
 from __future__ import annotations
 

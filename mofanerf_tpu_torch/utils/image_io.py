@@ -2,14 +2,16 @@
 the `imageio.v2.imread` / `imageio.imwrite` / `cv2.resize` / `cv2.warpAffine`
 / `cv2.cvtColor` calls of the JAX package.
 
-- `imread` returns, for every PNG, JPEG and BMP that the JAX package's
-  readers take, what `imageio.v2.imread` returns: the same shape, dtype and
-  values (PNG and BMP exactly; JPEG bit for bit with libjpeg-turbo's islow
-  IDCT, fancy upsampling and colour transform). The decoders: `png.py`
-  (every colour type and depth, tRNS, Adam7), `jpeg.py` (baseline,
-  extended, progressive and lossless Huffman frames, any sampling factors,
-  CMYK and YCCK) and `read_bmp` below. `image_size` reads (H, W) from the
-  header of each, decoding no pixel data.
+- `imread` returns, for every PNG, JPEG, BMP and WebP that the JAX
+  package's readers take, what `imageio.v2.imread` returns: the same shape,
+  dtype and values (PNG, BMP and WebP exactly; JPEG bit for bit with
+  libjpeg-turbo's islow IDCT, fancy upsampling and colour transform). The
+  decoders: `png.py` (every colour type and depth, tRNS, Adam7), `jpeg.py`
+  (baseline, extended, progressive and lossless Huffman frames, any sampling
+  factors, CMYK and YCCK), `read_bmp` below and `webp.py` (lossy `vp8.py`
+  with its alpha plane, lossless `vp8l.py`, an animation's first frame).
+  `image_size` reads (H, W) from the header of each, decoding no pixel
+  data.
 - `write_png` (8-bit gray, RGB, RGBA) and `write_jpeg` (baseline 4:4:4).
 - `resize_area`: `cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)`
   for float images, area-weighted when shrinking, OpenCV's INTER_AREA
@@ -32,6 +34,7 @@ import torch
 
 from .jpeg import jpeg_size, read_jpeg, write_jpeg  # noqa: F401  (re-exported)
 from .png import PNG_SIGNATURE, png_size, read_png, unpack_samples, write_png  # noqa: F401
+from .webp import is_webp, read_webp, webp_size
 
 # ---------------------------------------------------------------------------
 # BMP, as Pillow's BmpImagePlugin reads it
@@ -205,24 +208,25 @@ def read_bmp(data: bytes) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG, JPEG or BMP file, told apart by its first bytes, as
+    """Read a PNG, JPEG, BMP or WebP file, told apart by its first bytes, as
     `imageio.v2.imread` reads it: the same shape, dtype (uint8, or bool for
     1-bit gray, uint16 for 16-bit gray PNG) and values. A file that cannot
     be read raises a ValueError naming it."""
     with open(path, "rb") as f:
         data = f.read()
     readers = {PNG_SIGNATURE: read_png, b"\xff\xd8": read_jpeg, b"BM": read_bmp}
-    for magic, read in readers.items():
-        if data.startswith(magic):
-            try:
-                return read(data)
-            except (ValueError, IndexError, struct.error) as e:
-                raise ValueError(f"{path}: {e}") from e
-    raise ValueError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+    read = next((r for magic, r in readers.items() if data.startswith(magic)),
+                read_webp if is_webp(data) else None)
+    if read is None:
+        raise ValueError(f"{path}: neither a PNG, a JPEG, a BMP nor a WebP file")
+    try:
+        return read(data)
+    except (ValueError, IndexError, struct.error) as e:
+        raise ValueError(f"{path}: {e}") from e
 
 
 def image_size(path: str) -> tuple:
-    """(H, W) of a PNG, JPEG or BMP file, from its header alone."""
+    """(H, W) of a PNG, JPEG, BMP or WebP file, from its headers alone."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -233,9 +237,11 @@ def image_size(path: str) -> tuple:
             return hd["height"], hd["width"]
         if data.startswith(b"\xff\xd8"):
             return jpeg_size(data)
+        if is_webp(data):
+            return webp_size(data)
     except (ValueError, struct.error) as e:
         raise ValueError(f"{path}: {e}") from e
-    raise ValueError(f"{path}: neither a PNG, a JPEG nor a BMP file")
+    raise ValueError(f"{path}: neither a PNG, a JPEG, a BMP nor a WebP file")
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ and depth, PLTE, tRNS, Adam7, the five row filters in turn) and `bmp_file`
 (the 12-byte core header and BITMAPINFOHEADER to V5, 1- to 32-bit,
 palettes, BI_BITFIELDS, RLE8 / RLE4, bottom-up or top-down). The committed
 fixtures of mofanerf_tpu_torch/testdata/formats/ are held against their
-manifest, which is re-derived from imageio here. Regenerate them (Pillow
-and imageio needed; deterministic):
+manifest, which is re-derived from imageio here (the WebP fixtures are
+written by tests/test_torch_webp.py). Regenerate them (Pillow and imageio
+needed; deterministic):
 
     JAX_PLATFORMS=cpu python -m tests.test_torch_image_formats mofanerf_tpu_torch/testdata/formats
 """
@@ -635,6 +636,9 @@ def make_fixtures(out_dir):
                                  compression=1)
     files["rle4.bmp"] = bmp_file(idx, 4, palette=pal, compression=2)
     files["os2_core24.bmp"] = bmp_file(img, 24, header=12)
+    # WebP: written by tests/test_torch_webp.py
+    from tests.test_torch_webp import webp_fixture_files
+    files.update(webp_fixture_files(files["photo_1024_progressive.jpg"]))
     manifest = {}
     for name, data in sorted(files.items()):
         path = os.path.join(out_dir, name)

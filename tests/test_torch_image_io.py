@@ -208,7 +208,7 @@ def test_unreadable_files_raise_naming_the_file(tmp_path):
     with pytest.raises(ValueError, match=r"x\.bmp: BMP of 24 bits, compression 1"):
         iio.imread(str(path))
     (tmp_path / "y.gif").write_bytes(b"GIF89a")
-    with pytest.raises(ValueError, match=r"y\.gif: neither a PNG, a JPEG nor a BMP file"):
+    with pytest.raises(ValueError, match=r"y\.gif: neither a PNG, a JPEG, a BMP nor a WebP file"):
         iio.imread(str(tmp_path / "y.gif"))
 
 
