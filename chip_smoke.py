@@ -230,17 +230,27 @@ WILD_CANVAS, WILD_WARP, WILD_FIT_ITERS, WILD_AB_TOL = (640, 480), (12.0, 0.75), 
 DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
 # the image formats phase: the committed files, run_fit's iterations on D's relit photo,
 # run_train's steps with the progressive UV map, (progressive, baseline) pairs of turns of
-# the 1024^2 photo's decode (and of the WebP photo's against the WebP face render's)
+# the 1024^2 photo's decode (and of the WebP photo's against the WebP face render's), and
+# (arithmetic, progressive) pairs of turns of the arithmetic photo's, more of them: its ratio
+# to the progressive decode spread from 1.12x to 1.43x over two runs of 2 turns
 FORMATS_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "formats")
 FORMATS_FIT_ITERS, FORMATS_TRAIN_STEPS, FORMATS_DECODE_TURNS = 10, 2, 2
+FORMATS_ARITH_TURNS = 6
 FORMATS_WEBP = {"lossy": "photo_1024_q80.webp", "lossless": "face_512_lossless.webp"}
+FORMATS_ARITH = {"arithmetic": "photo_1024_arith.jpg", "progressive": "photo_1024_progressive.jpg"}
+# the wild photos of the formats phase: the progressive D, its arithmetic-coded E, the smoothed F
+FORMATS_PHOTOS = {"D": "progressive 4:2:0", "E": "progressive arithmetic-coded 4:2:0",
+                  "F": "progressive, ended before its last refinement scans: smoothed"}
 
 # the examples phase (mofanerf_tpu_torch/examples), after the formats phase: distill_morphable
 # at half its JAX budgets (3000 + 9000 steps took over the 150 s given it on the card), the
 # other seven at their quick size: --quick (distill_synthetic's teacher cut to 400 steps of its
 # 2000), or --iters 400 where the JAX script has no --quick; texture_synthetic at 800 of its 2500,
-# since at 400 its teacher often still renders empty and fails the colour gates (PERF.md, PR 16);
-# it still ends before distill_morphable. (study, argv, JSON written)
+# under deterministic algorithms (the study's mode since PR 17): its seed's one trajectory, which
+# passes. The recipe's densities die in some runs: with the card's atomics 5 of 8 at 2500 and
+# 1 of 6 at 800, and from 1 of 8 starts perturbed at rounding size at 800, on an H100 80GB HBM3
+# at 700.00 W (PERF.md, PR 16-17);
+# 2500 would outlast EXAMPLES_TIMEOUT. (study, argv, JSON written)
 EXAMPLES_RUNS = (
     ("distill_morphable", ["--out", "@OUT", "--iters", "1500", "--distill_steps", "4500"],
      "avatar_student_quality.json"),
@@ -3293,12 +3303,15 @@ def formats_phase(failures, card, dev, render_flags, tmp):
     mofanerf_tpu_torch/testdata/formats against its manifest (imageio's shape,
     dtype and SHA-256, re-derived by tests/test_torch_image_formats.py on the
     CPU) and its header size; the decode time of a 1024^2 photo, progressive
-    against baseline, in turns; wild_preprocess on the wild phase's photos A-C
-    with the progressive photo D.jpg beside them, then run_fit on D's relit
-    photo; run_train on the training fixture with each identity's UV map
-    replaced by the progressive one, its held-out render counted. Both paths
-    count the field kernel's launches with the count zeroed just before and
-    read just after."""
+    against baseline, and arithmetic-coded against progressive, in turns;
+    wild_preprocess on the wild phase's photos A-C with the progressive photo
+    D.jpg, its arithmetic-coded copy E.jpg and the smoothed F.jpg (D ended
+    before its last refinement scans) beside them, then run_fit on each of
+    D-F's relit photos; run_train on the training fixture with each
+    identity's UV map replaced by the progressive one, then by the sequential
+    arithmetic-coded one, its held-out render counted. Every path counts the
+    field kernel's launches with the count zeroed just before and read just
+    after."""
     import re
     import shutil
 
@@ -3323,7 +3336,7 @@ def formats_phase(failures, card, dev, render_flags, tmp):
                 or list(image_size(path)) != entry["shape"][:2]:
             off.append(name)
     print(f"formats: {len(manifest)} committed files (PNG, BMP, progressive and baseline JPEG, "
-          f"WebP lossy, lossless, with alpha and animated) "
+          f"arithmetic-coded and smoothed JPEG, WebP lossy, lossless, with alpha and animated) "
           f"decoded on the host against their manifest: {len(manifest) - len(off)} equal by "
           f"SHA-256, shape, dtype and header size, differing {off}; ms a file "
           + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items()), flush=True)
@@ -3359,13 +3372,31 @@ def formats_phase(failures, card, dev, render_flags, tmp):
           f"lossless (VP8L) {FORMATS_WEBP['lossless']} {webp_ms_mpx['lossless']:.1f} ms a "
           f"megapixel; beside JPEG progressive {ms_mpx['progressive']:.1f}, baseline "
           f"{ms_mpx['baseline']:.1f}; all turns (ms) {webp_turns}; host of {card}", flush=True)
+    # the arithmetic decode: the same 1024^2 photo progressive arithmetic-coded (E's coding)
+    # against the progressive Huffman file, in turns
+    arith_turns = {"arithmetic": [], "progressive": []}
+    for k in ("arithmetic", "progressive", "progressive", "arithmetic") * FORMATS_ARITH_TURNS:
+        t0 = time.perf_counter()
+        imread(os.path.join(FORMATS_DIR, FORMATS_ARITH[k]))
+        arith_turns[k].append((time.perf_counter() - t0) * 1e3)
+    arith_ms_mpx = {k: float(np.median(v)) / (1024 * 1024 / 1e6) for k, v in arith_turns.items()}
+    # each decode against its neighbour of the other kind in the same turn
+    paired = float(np.median(np.divide(arith_turns["arithmetic"], arith_turns["progressive"])))
+    print(f"formats: arithmetic-coded JPEG decode on the host, median of "
+          f"{2 * FORMATS_ARITH_TURNS} in turns: {FORMATS_ARITH['arithmetic']} "
+          f"{arith_ms_mpx['arithmetic']:.1f} ms a megapixel against "
+          f"{FORMATS_ARITH['progressive']} {arith_ms_mpx['progressive']:.1f} "
+          f"({arith_ms_mpx['arithmetic'] / arith_ms_mpx['progressive']:.2f}x; the median of "
+          f"the paired ratios {paired:.2f}x); all turns (ms) {arith_turns}; host of {card}",
+          flush=True)
 
-    # ---- 2. wild_preprocess with the progressive photo D beside A-C, then run_fit on D
+    # ---- 2. wild_preprocess with the photos D-F beside A-C, then run_fit on each
     wild = os.path.join(tmp, "wild_formats")
     shutil.copytree(os.path.join(tmp, "wild"), wild, ignore=shutil.ignore_patterns(
         "raw", "mask", "segRes", "segRelRes", "pose_*", "fitting"))
-    for name in ("D.jpg", "kp_D.npy"):
-        shutil.copy(os.path.join(FORMATS_DIR, name), os.path.join(wild, name))
+    for name in FORMATS_PHOTOS:
+        for f in (f"{name}.jpg", f"kp_{name}.npy"):
+            shutil.copy(os.path.join(FORMATS_DIR, f), os.path.join(wild, f))
     weights = os.path.join(tmp, "wild_weights")
     flags = ["--filePath", wild, "--landmarks3d", os.path.join(tmp, "faces", "landmarks.npy"),
              "--bisenet_weights", os.path.join(weights, "Seg_79999_iter.pth"),
@@ -3374,76 +3405,91 @@ def formats_phase(failures, card, dev, render_flags, tmp):
     _, _, cli_sec = quiet(lambda: wild_preprocess.main(flags))
     outs = {sub: sorted(os.listdir(os.path.join(wild, sub)))
             for sub in ("raw", "mask", "segRes", "segRelRes")}
-    pose_d = np.load(os.path.join(wild, "pose_D.npy"), allow_pickle=True).item()
     raw = {n: imread(os.path.join(wild, "raw", f"{n}.png")).astype(np.float32) / 255
-           for n in "BD"}
+           for n in "B" + "".join(FORMATS_PHOTOS)}
     inside = (imread(os.path.join(wild, "mask", "B.png")) > 0) & (raw["B"].max(-1) > 0)
-    db_diff = float(np.abs(raw["D"] - raw["B"])[inside].mean()) if inside.any() else float("nan")
-    print(f"formats: wild_preprocess on A-C and the progressive D.jpg: {cli_sec:.2f} s with "
-          f"start-up; outputs {outs}; D's kp {pose_d['kp'].shape}; D (progressive 4:2:0) "
-          f"against B aligned: mean |diff| {db_diff:.4f} over {int(inside.sum())} pixels of "
-          f"B's mask (tol {WILD_AB_TOL})", flush=True)
-    if any(v != ["A.png", "B.png", "C.png", "D.png"] for v in outs.values()):
+    vs_b, kp_shapes = {}, {}
+    for name in FORMATS_PHOTOS:
+        pose = np.load(os.path.join(wild, f"pose_{name}.npy"), allow_pickle=True).item()
+        kp_shapes[name] = pose["kp"].shape
+        vs_b[name] = float(np.abs(raw[name] - raw["B"])[inside].mean()) if inside.any() \
+            else float("nan")
+    print(f"formats: wild_preprocess on A-C and the photos {FORMATS_PHOTOS}: {cli_sec:.2f} s "
+          f"with start-up; outputs {outs}; kp {kp_shapes}; each against B aligned (mean |diff| "
+          f"over {int(inside.sum())} pixels of B's mask, tol {WILD_AB_TOL}): {vs_b}", flush=True)
+    want_outs = sorted(["A.png", "B.png", "C.png"] + [f"{n}.png" for n in FORMATS_PHOTOS])
+    if any(v != want_outs for v in outs.values()):
         fail(failures, f"formats: wild_preprocess outputs {outs}")
-    if not db_diff <= WILD_AB_TOL or pose_d["kp"].shape != (68, 2):
-        fail(failures, f"formats: D's aligned photo differs from B's by {db_diff}, or its kp "
-                       f"{pose_d['kp'].shape}")
+    for name in FORMATS_PHOTOS:
+        if not vs_b[name] <= WILD_AB_TOL or kp_shapes[name] != (68, 2):
+            fail(failures, f"formats: {name}'s aligned photo differs from B's by {vs_b[name]}, "
+                           f"or its kp {kp_shapes[name]}")
     cfg = load_config(render_flags)
-    argv = ["--filePath", os.path.join(wild, "segRelRes", "D.png"), "--num_iterations",
-            str(FORMATS_FIT_ITERS), "--pose_freeze_iters", str(FORMATS_FIT_ITERS // 2),
-            "--device", str(dev)] + render_flags
     want_fit = 2 * n_packets((512 // 2) ** 2, cfg.model_spec().render.packet_size)
-    torch.cuda.synchronize()
-    fk.launch_count = 0
-    _, fit_text, fit_sec = quiet(lambda: run_fit.main(argv))
-    fit_launches = fk.launch_count
-    losses = [float(v) for v in re.findall(r"\[FIT\] iter \d+ loss (\S+)", fit_text)]
-    print(f"formats: run_fit on segRelRes/D.png, {FORMATS_FIT_ITERS + 1} steps in "
-          f"{fit_sec:.2f} s with start-up; loss {losses}; field kernel launches {fit_launches} "
-          f"(expected {want_fit})", flush=True)
-    if fit_launches != want_fit or not losses or not np.isfinite(losses).all():
-        fail(failures, f"formats: run_fit on D: {fit_launches} launches (expected {want_fit}), "
-                       f"loss {losses}")
+    fits = {}
+    for name in FORMATS_PHOTOS:
+        argv = ["--filePath", os.path.join(wild, "segRelRes", f"{name}.png"), "--num_iterations",
+                str(FORMATS_FIT_ITERS), "--pose_freeze_iters", str(FORMATS_FIT_ITERS // 2),
+                "--device", str(dev)] + render_flags
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        _, fit_text, fit_sec = quiet(lambda: run_fit.main(argv))
+        fit_launches = fk.launch_count
+        losses = [float(v) for v in re.findall(r"\[FIT\] iter \d+ loss (\S+)", fit_text)]
+        fits[name] = {"s": fit_sec, "losses": losses, "launches": fit_launches}
+        print(f"formats: run_fit on segRelRes/{name}.png ({FORMATS_PHOTOS[name]}), "
+              f"{FORMATS_FIT_ITERS + 1} steps in {fit_sec:.2f} s with start-up; loss {losses}; "
+              f"field kernel launches {fit_launches} (expected {want_fit})", flush=True)
+        if fit_launches != want_fit or not losses or not np.isfinite(losses).all():
+            fail(failures, f"formats: run_fit on {name}: {fit_launches} launches (expected "
+                           f"{want_fit}), loss {losses}")
 
-    # ---- 3. run_train with a progressive UV map
-    data = os.path.join(tmp, "data_progressive")
-    shutil.copytree(os.path.join(tmp, "data"), data)
-    uvs = [os.path.join(data, "uv", i, "1_neutral.jpg") for i in ("0", "1")]
-    for uv in uvs:   # both identities', so that every batch and the held-out image read one
-        shutil.copy(os.path.join(FORMATS_DIR, "uv_progressive.jpg"), uv)
-    with open(uvs[1], "rb") as f:
-        progressive = b"\xff\xc2" in f.read()
-    swap = {"--expname": "formats", "--datadir": data, "--uvdir": os.path.join(data, "uv"),
-            "--shape_codes_path": os.path.join(data, "factors_id.npy"),
-            "--landmarks_path": os.path.join(data, "landmarks.npy")}
-    train_flags = [swap.get(render_flags[i - 1], a) if i else a
-                   for i, a in enumerate(render_flags)]
-    n = FORMATS_TRAIN_STEPS
-    train_flags += ["--i_print", "1", "--i_weights", str(10 * n), "--i_testset", str(n),
-                    "--i_video", str(10 * n), "--n_iters", str(n), "--device", str(dev)]
-    want_train = 2 * n_packets((TRAIN_SIDE // 2) ** 2, cfg.model_spec().render.packet_size)
-    torch.cuda.synchronize()
-    fk.launch_count = 0
-    _, _, train_sec = quiet(lambda: run_train.main(train_flags))
-    train_launches = fk.launch_count
-    with open(os.path.join(cfg.basedir, "formats", "train_log.txt")) as f:
-        log = f.read()
-    train_losses = [float(line.split()[3]) for line in log.splitlines()
-                    if line.startswith("Iteration")]
-    print(f"formats: run_train {n} steps with each identity's UV map the progressive 512^2 JPEG "
-          f"(SOF2 {progressive}): {train_sec:.2f} s with start-up; loss {train_losses}; field "
-          f"kernel launches {train_launches} (expected {want_train}: the held-out image)",
-          flush=True)
-    if not progressive or train_launches != want_train or len(train_losses) != n \
-            or not np.isfinite(train_losses).all():
-        fail(failures, f"formats: run_train with the progressive UV map: {train_launches} "
-                       f"launches (expected {want_train}), losses {train_losses}")
+    # ---- 3. run_train with a progressive UV map, then with a sequential arithmetic-coded one
+    trains = {}
+    for uv_name, sof, label in (("uv_progressive.jpg", b"\xff\xc2", "progressive (SOF2)"),
+                                ("uv_arith.jpg", b"\xff\xc9", "arithmetic-coded (SOF9)")):
+        tag = uv_name[:-4]
+        data = os.path.join(tmp, f"data_{tag}")
+        shutil.copytree(os.path.join(tmp, "data"), data)
+        uvs = [os.path.join(data, "uv", i, "1_neutral.jpg") for i in ("0", "1")]
+        for uv in uvs:   # both identities', so that every batch and the held-out image read one
+            shutil.copy(os.path.join(FORMATS_DIR, uv_name), uv)
+        with open(uvs[1], "rb") as f:
+            coded = sof in f.read()
+        swap = {"--expname": f"formats_{tag}", "--datadir": data,
+                "--uvdir": os.path.join(data, "uv"),
+                "--shape_codes_path": os.path.join(data, "factors_id.npy"),
+                "--landmarks_path": os.path.join(data, "landmarks.npy")}
+        train_flags = [swap.get(render_flags[i - 1], a) if i else a
+                       for i, a in enumerate(render_flags)]
+        n = FORMATS_TRAIN_STEPS
+        train_flags += ["--i_print", "1", "--i_weights", str(10 * n), "--i_testset", str(n),
+                        "--i_video", str(10 * n), "--n_iters", str(n), "--device", str(dev)]
+        want_train = 2 * n_packets((TRAIN_SIDE // 2) ** 2, cfg.model_spec().render.packet_size)
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        _, _, train_sec = quiet(lambda: run_train.main(train_flags))
+        train_launches = fk.launch_count
+        with open(os.path.join(cfg.basedir, f"formats_{tag}", "train_log.txt")) as f:
+            log = f.read()
+        train_losses = [float(line.split()[3]) for line in log.splitlines()
+                        if line.startswith("Iteration")]
+        trains[tag] = {"s": train_sec, "losses": train_losses, "launches": train_launches}
+        print(f"formats: run_train {n} steps with each identity's UV map the {label} 512^2 JPEG "
+              f"({uv_name}, marker found: {coded}): {train_sec:.2f} s with start-up; loss "
+              f"{train_losses}; field kernel launches {train_launches} (expected {want_train}: "
+              f"the held-out image)", flush=True)
+        if not coded or train_launches != want_train or len(train_losses) != n \
+                or not np.isfinite(train_losses).all():
+            fail(failures, f"formats: run_train with {uv_name}: {train_launches} launches "
+                           f"(expected {want_train}), losses {train_losses}")
     return {"files": len(manifest), "files_differing": off, "decode_ms": decode_ms,
             "photo_ms_a_megapixel": ms_mpx, "photo_turns_ms": turns,
             "webp_ms_a_megapixel": webp_ms_mpx, "webp_turns_ms": webp_turns,
-            "wild_cli_s": cli_sec, "d_vs_b_mean_abs_diff": db_diff, "fit_s": fit_sec,
-            "fit_losses": losses, "fit_launches": fit_launches, "train_s": train_sec,
-            "train_losses": train_losses, "train_launches": train_launches, "card": card}
+            "arith_ms_a_megapixel": arith_ms_mpx, "arith_turns_ms": arith_turns,
+            "wild_cli_s": cli_sec, "vs_b_mean_abs_diff": vs_b, "fits": fits, "trains": trains,
+            "fit_launches": sum(v["launches"] for v in fits.values()),
+            "train_launches": sum(v["launches"] for v in trains.values()), "card": card}
 
 
 def _finite_readings(tree):
@@ -4641,7 +4687,8 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         formats = formats_phase(failures, card, dev, render_flags, work)
         print(f"path phase (image formats: the committed files, wild_preprocess -> run_fit on "
-              f"a progressive photo, run_train with a progressive UV map): "
+              f"a progressive, an arithmetic-coded and a smoothed photo, run_train with a "
+              f"progressive and an arithmetic-coded UV map): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         examples, example_shapes = examples_phase(failures, card, dev, work)

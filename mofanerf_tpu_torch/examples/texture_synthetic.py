@@ -9,6 +9,13 @@ red-dominant and identity 1's blue-dominant. Writes
 `<out>/texture_synthetic.json`.
 
 Usage: python -m mofanerf_tpu_torch.examples.texture_synthetic [out_dir] [--iters 2500]
+
+The teacher trains under `torch.use_deterministic_algorithms(True)`, as XLA
+runs the JAX script deterministically, so that a start is one trajectory on
+the card too. With the card's atomics the trajectory changes from run to run,
+and the recipe's ReLU densities die in some runs (both renders empty, the
+gates fail), as they do from some starts perturbed at the size of rounding,
+in this port and in the JAX script (tests/torch_texture_trials.py, PERF.md).
 """
 from __future__ import annotations
 
@@ -57,26 +64,44 @@ def main(argv=None):
     p.add_argument("--res", type=int, default=64)
     _scenes.add_device_flags(p)
     args = p.parse_args(argv)
-    dev = _scenes.device_of(args)
-    out = args.out
-    data = f"{out}/data"
-    os.makedirs(data, exist_ok=True)
-    render_colored_cubes(data, args.res, dev)
-    ds, H, W, K = _scenes.load_dataset(data, [0, 1])
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return study(args.out, args.iters, args.res, _scenes.device_of(args))
+    finally:
+        torch.use_deterministic_algorithms(previous)
 
-    spec = _scenes.teacher_spec()
+
+def uv_maps(dev) -> dict:
+    """The UV maps: one solid colour an identity, the only identity signal
+    (the shape codes are the same zeros)."""
+    return {0: _scenes.uv_tensor(_scenes.RED, dev), 1: _scenes.uv_tensor(_scenes.BLUE, dev)}
+
+
+def batches(ds, K, dev):
+    """The teacher's batch(i): the host sampler at the JAX script's seed 1,
+    each view's rays with its identity's UV map."""
     sampler = _scenes.HostSampler(ds, seed=1)
-    # the UV maps: one solid colour an identity, the only identity signal
-    # (the shape codes are the same zeros)
-    uvs = {0: _scenes.uv_tensor(_scenes.RED, dev), 1: _scenes.uv_tensor(_scenes.BLUE, dev)}
+    uvs = uv_maps(dev)
     zeros = np.zeros(50, np.float32)
 
     def batch(i):
         ii, coords, target = sampler.draw()
         return _scenes.make_batch(ds, K, ii, coords, target, zeros, 0,
                                   uvs[int(ds.id_codes[ii])], dev)
+    return batch
 
-    state, secs, _ = _scenes.train_teacher(spec, 1e-3, batch, args.iters, dev)
+
+def study(out: str, iters: int, res: int, dev):
+    """The study in the caller's mode of torch's algorithms: render the data,
+    train, render each identity, gate. Returns (result, timing)."""
+    data = f"{out}/data"
+    os.makedirs(data, exist_ok=True)
+    render_colored_cubes(data, res, dev)
+    ds, H, W, K = _scenes.load_dataset(data, [0, 1])
+    spec = _scenes.teacher_spec()
+    uvs = uv_maps(dev)
+    state, secs, _ = _scenes.train_teacher(spec, 1e-3, batches(ds, K, dev), iters, dev)
 
     pose = ds.poses[int(ds.i_split[2][0])][:3]
     mean_rgb = {}
@@ -94,8 +119,8 @@ def main(argv=None):
               "mean_rgb_uv1": [float(c) for c in mean_rgb[1]],
               "red_dominant_uv0": bool(mean_rgb[0][0] > mean_rgb[0][2]),
               "blue_dominant_uv1": bool(mean_rgb[1][2] > mean_rgb[1][0]),
-              "iters": args.iters, "device": _scenes.device_name(dev)}
-    timing = {"teacher_secs": secs, "teacher_steps_per_sec": _scenes.rate(args.iters, secs)}
+              "iters": iters, "device": _scenes.device_name(dev)}
+    timing = {"teacher_secs": secs, "teacher_steps_per_sec": _scenes.rate(iters, secs)}
     _scenes.write_json(os.path.join(out, "texture_synthetic.json"), result, timing)
     _scenes.gate(mean_rgb[0][0] > mean_rgb[0][2], "uv0 render not red-dominant")
     _scenes.gate(mean_rgb[1][2] > mean_rgb[1][0], "uv1 render not blue-dominant")

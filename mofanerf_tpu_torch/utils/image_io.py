@@ -5,10 +5,12 @@ the `imageio.v2.imread` / `imageio.imwrite` / `cv2.resize` / `cv2.warpAffine`
 - `imread` returns, for every PNG, JPEG, BMP and WebP that the JAX
   package's readers take, what `imageio.v2.imread` returns: the same shape,
   dtype and values (PNG, BMP and WebP exactly; JPEG bit for bit with
-  libjpeg-turbo's islow IDCT, fancy upsampling and colour transform). The
-  decoders: `png.py` (every colour type and depth, tRNS, Adam7), `jpeg.py`
-  (baseline, extended, progressive and lossless Huffman frames, any sampling
-  factors, CMYK and YCCK), `read_bmp` below and `webp.py` (lossy `vp8.py`
+  libjpeg-turbo's SIMD islow IDCT, fancy upsampling, colour transform and
+  block smoothing). The decoders: `png.py` (every colour type and depth,
+  tRNS, Adam7), `jpeg.py` (baseline, extended, progressive and lossless
+  Huffman frames, sequential and progressive arithmetic-coded ones through
+  `jpeg_arith.py`, any sampling factors, CMYK and YCCK, the progressive
+  files libjpeg smooths), `read_bmp` below and `webp.py` (lossy `vp8.py`
   with its alpha plane, lossless `vp8l.py`, an animation's first frame).
   `image_size` reads (H, W) from the header of each, decoding no pixel
   data.
@@ -210,8 +212,10 @@ def read_bmp(data: bytes) -> np.ndarray:
 def imread(path: str) -> np.ndarray:
     """Read a PNG, JPEG, BMP or WebP file, told apart by its first bytes, as
     `imageio.v2.imread` reads it: the same shape, dtype (uint8, or bool for
-    1-bit gray, uint16 for 16-bit gray PNG) and values. A file that cannot
-    be read raises a ValueError naming it."""
+    1-bit gray, uint16 for 16-bit gray PNG) and values; JPEGs Huffman- or
+    arithmetic-coded, progressive ones smoothed where libjpeg smooths them.
+    A file that cannot be read (imageio refuses it too) raises a ValueError
+    naming it."""
     with open(path, "rb") as f:
         data = f.read()
     readers = {PNG_SIGNATURE: read_png, b"\xff\xd8": read_jpeg, b"BM": read_bmp}

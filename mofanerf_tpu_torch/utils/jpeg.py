@@ -5,12 +5,20 @@ returns for a JPEG (Pillow over libjpeg-turbo 3, at Pillow's defaults).
   progressive (SOF2: DC first and refinement scans, AC spectral selection
   with EOB runs, AC refinement with correction bits, restart intervals in
   every scan type) and lossless (SOF3, predictors 1-7, point transform)
-  frames at 8-bit precision; any sampling factors 1-4. The Huffman stage is
-  pure Python on 65536-entry lookup tables; the rest follows libjpeg's
-  defaults in integer arithmetic, vectorised over blocks: the "islow" IDCT,
-  "fancy" triangle upsampling for h2v1, h1v2 and h2v2 ratios and box
-  replication for every other integer ratio (lossless frames replicate at
-  every ratio), and the fixed-point YCbCr -> RGB transform.
+  frames, and arithmetic-coded sequential and progressive ones (SOF9,
+  SOF10, with DAC conditioning; `jpeg_arith.py`), at 8-bit precision; any
+  sampling factors 1-4. The Huffman and arithmetic stages are pure Python
+  (the Huffman one on 65536-entry lookup tables); the rest follows libjpeg's
+  defaults in integer arithmetic, vectorised over blocks: block smoothing of
+  progressive files whose scans leave low coefficients' bits unknown (a file
+  ended before its last scans), the "islow" IDCT as libjpeg-turbo's SIMD code
+  computes it, "fancy" triangle upsampling for h2v1, h1v2 and h2v2 ratios
+  and box replication for every other integer ratio (lossless frames
+  replicate at every ratio), and the fixed-point YCbCr -> RGB transform.
+- Markers as libjpeg reads them: other bytes between markers skipped, RSTn
+  and TEM without a length; a frame of one scan of every component may end
+  after that scan (libjpeg has put out every row before it looks for EOI),
+  any other must reach its EOI.
 - Colour, as libjpeg picks it and Pillow returns it: 1 component -> uint8
   [H, W]; 3 -> [H, W, 3], YCbCr unless an Adobe marker says RGB (transform
   0) without a JFIF marker, or the component ids are "R", "G", "B"; 4 ->
@@ -19,10 +27,10 @@ returns for a JPEG (Pillow over libjpeg-turbo 3, at Pillow's defaults).
 - Refused (ValueError), where imageio refuses too: samples of other than 8
   bits, 2-component frames, non-integral sampling ratios, lossless YCbCr or
   YCCK (libjpeg-turbo converts no lossless colours), lossless restart
-  intervals that are not whole MCU rows, truncated data. Refused although
-  imageio reads them: arithmetic coding (SOF9-SOF15) and progressive files
-  whose scans leave coefficient bits unknown (libjpeg smooths those blocks,
-  which is not reproduced).
+  intervals that are not whole MCU rows, truncated data, arithmetic-coded
+  lossless (SOF11) and hierarchical frames (SOF5-SOF7, SOF13-SOF15), reserved
+  markers, an arithmetic-coded scan that needs bytes past the 64 KiB blocks
+  Pillow has handed libjpeg (`jpeg_arith.py`).
 - A small baseline encoder (4:4:4, the Annex K quantisation and Huffman
   tables)."""
 from __future__ import annotations
@@ -31,6 +39,8 @@ import struct
 from array import array
 
 import numpy as np
+
+from mofanerf_tpu_torch.utils import jpeg_arith
 
 ZIGZAG = np.array([
     0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
@@ -69,8 +79,19 @@ _AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], _ac_values([
     0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
     0xF1]))
 
-# frame markers: SOF0 baseline, SOF1 extended sequential, SOF2 progressive, SOF3 lossless
-_SOF_KINDS = {0xC0: "sequential", 0xC1: "sequential", 0xC2: "progressive", 0xC3: "lossless"}
+# frame markers: SOF0 baseline, SOF1 extended sequential, SOF2 progressive, SOF3 lossless,
+# and their arithmetic-coded counterparts SOF9-SOF11: (kind, arithmetic)
+_SOF_KINDS = {0xC0: ("sequential", False), 0xC1: ("sequential", False),
+              0xC2: ("progressive", False), 0xC3: ("lossless", False),
+              0xC9: ("sequential", True), 0xCA: ("progressive", True),
+              0xCB: ("lossless", True)}
+# markers libjpeg reads without a length (RSTn, TEM), the frames it refuses (the
+# hierarchical SOF5-SOF7 and SOF13-SOF15, and JPG), and every marker it knows (it
+# refuses the reserved rest)
+_PARAMETERLESS = set(range(0xD0, 0xD8)) | {0x01}
+_UNSUPPORTED_FRAMES = {0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE, 0xCF}
+_KNOWN = (set(_SOF_KINDS) | _PARAMETERLESS | _UNSUPPORTED_FRAMES
+          | {0xC4, 0xCC, 0xD8, 0xD9, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE} | set(range(0xE0, 0xF0)))
 
 
 def _canonical_codes(counts, symbols):
@@ -96,7 +117,8 @@ def _lookup_table(counts, symbols):
 
 
 # ---------------------------------------------------------------------------
-# integer IDCT (libjpeg's jidctint.c "islow"), vectorised over blocks
+# integer IDCT (libjpeg's "islow", as libjpeg-turbo's SIMD jsimd_idct_islow
+# computes it on x86), vectorised over blocks
 
 _CONST_BITS, _PASS1_BITS = 13, 2
 _F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270,
@@ -104,24 +126,36 @@ _F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_76536686
       "1_961570560": 16069, "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
 
 
+def _wrap(x, bits):
+    """x in `bits`-bit two's complement (a SIMD lane's wrap-around)."""
+    half = 1 << (bits - 1)
+    return ((x + half) & ((half << 1) - 1)) - half
+
+
 def _descale(x, n):
-    return (x + (1 << (n - 1))) >> n
+    """Round and shift right by n in 32-bit lanes, then saturate to 16 bits
+    (the SIMD code's paddd, psrad and packssdw)."""
+    return np.clip(_wrap(x + (1 << (n - 1)), 32) >> n, -32768, 32767)
 
 
 def _idct_1d(s):
-    """One pass of jidctint.c over axis -2 of int64 [..., 8, 8] (rows 0..7 of
-    the axis are the 8 inputs); returns the 8 outputs before descaling."""
+    """One pass of jidctint.c's islow over axis -2 of int64 [..., 8, 8] (rows
+    0..7 of the axis are the 8 inputs, 16-bit); returns the 8 outputs before
+    descaling. The sums in0 +- in4, in7 + in3 and in5 + in1 are taken in 16
+    bits, as the SIMD code takes them; every product and later sum is exact
+    (the 32-bit wrap is applied with the descaling)."""
     z2, z3 = s[..., 2, :], s[..., 6, :]
     z1 = (z2 + z3) * _F["0_541196100"]
     tmp2 = z1 - z3 * _F["1_847759065"]
     tmp3 = z1 + z2 * _F["0_765366865"]
-    tmp0 = (s[..., 0, :] + s[..., 4, :]) << _CONST_BITS
-    tmp1 = (s[..., 0, :] - s[..., 4, :]) << _CONST_BITS
+    tmp0 = _wrap(s[..., 0, :] + s[..., 4, :], 16) << _CONST_BITS
+    tmp1 = _wrap(s[..., 0, :] - s[..., 4, :], 16) << _CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
 
     t0, t1, t2, t3 = s[..., 7, :], s[..., 5, :], s[..., 3, :], s[..., 1, :]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2 = t0 + t3, t1 + t2
+    z3, z4 = _wrap(t0 + t2, 16), _wrap(t1 + t3, 16)
     z5 = (z3 + z4) * _F["1_175875602"]
     t0 = t0 * _F["0_298631336"]
     t1 = t1 * _F["2_053119869"]
@@ -139,16 +173,22 @@ def _idct_1d(s):
                      tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], axis=-2)
 
 
-def idct_islow(coef: np.ndarray) -> np.ndarray:
-    """Dequantised coefficients int [B, 8, 8] (natural order, [v, u]) ->
-    samples uint8 [B, 8, 8], bit for bit as libjpeg's jpeg_idct_islow."""
+def idct_islow(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Quantised coefficients int [B, 8, 8] (natural order, [v, u]) and
+    their quantisation table [8, 8] -> samples uint8 [B, 8, 8], bit for bit
+    as libjpeg-turbo's jsimd_idct_islow (SSE2 / AVX2): the dequantised values
+    kept to 16 bits, a block whose AC rows 1-7 are zero passed through the
+    first pass as its first row << 2 (16-bit), each pass's outputs saturated
+    to 16 bits, the samples to [-128, 127] before the +128 level shift. On
+    coefficients whose passes stay in range (every well-formed file tried)
+    this equals the C jpeg_idct_islow and its range-limit table."""
     c = coef.astype(np.int64)
-    ws = _descale(_idct_1d(c), _CONST_BITS - _PASS1_BITS)                   # columns
+    deq = _wrap(c * q.astype(np.int64), 16)
+    ws = _descale(_idct_1d(deq), _CONST_BITS - _PASS1_BITS)                 # columns
+    dc_only = ~c[:, 1:, :].any(axis=(1, 2))
+    ws[dc_only] = _wrap(deq[dc_only, :1, :] << _PASS1_BITS, 16)
     out = _descale(_idct_1d(ws.swapaxes(-1, -2)), _CONST_BITS + _PASS1_BITS + 3)
-    out = out.swapaxes(-1, -2)
-    # libjpeg's range-limit table: the value taken mod 1024 into [-512, 511], + 128, clamped
-    out = ((out + 512) & 1023) - 512
-    return np.clip(out + 128, 0, 255).astype(np.uint8)
+    return (np.clip(out.swapaxes(-1, -2), -128, 127) + 128).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -555,37 +595,159 @@ def _check_progressive(ns, ss, se, ah, al):
                          f"over {ns} components are invalid")
 
 
+# ---------------------------------------------------------------------------
+# block smoothing (libjpeg-turbo 2.1+'s jdcoefct.c decompress_smooth_data)
+
+
+def _w(*rows):
+    """A 5 x 5 weight of the DC values two blocks around (rows -2..2 above to
+    below, columns -2..2 left to right), from its non-zero rows by offset."""
+    out = np.zeros((5, 5), np.int64)
+    for dy, row in rows:
+        out[dy + 2] = row
+    return out
+
+
+# the coefficients smoothing estimates, by zig-zag index (1-9): their natural
+# position, the weights when the component's AC coefficients are all unknown
+# (the DC then smoothed too), and otherwise (None: not estimated)
+_SMOOTH_TERMS = [
+    (1, 1, _w((-2, [-1, -1, 0, 1, 1]), (-1, [-3, 13, 0, -13, 3]), (0, [-3, 38, 0, -38, 3]),
+              (1, [-3, 13, 0, -13, 3]), (2, [-1, -1, 0, 1, 1])),
+     _w((0, [-7, 50, 0, -50, 7]))),
+    (2, 8, _w((-2, [-1, -3, -3, -3, -1]), (-1, [-1, 13, 38, 13, -1]),
+              (1, [1, -13, -38, -13, 1]), (2, [1, 3, 3, 3, 1])),
+     _w((-2, [0, 0, -7, 0, 0]), (-1, [0, 0, 50, 0, 0]), (1, [0, 0, -50, 0, 0]),
+        (2, [0, 0, 7, 0, 0]))),
+    (3, 16, _w((-2, [0, 0, 1, 0, 0]), (-1, [0, 2, 7, 2, 0]), (0, [0, -5, -14, -5, 0]),
+               (1, [0, 2, 7, 2, 0]), (2, [0, 0, 1, 0, 0])),
+     _w((-2, [0, 0, -1, 0, 0]), (-1, [0, 0, 13, 0, 0]), (0, [0, 0, -24, 0, 0]),
+        (1, [0, 0, 13, 0, 0]), (2, [0, 0, -1, 0, 0]))),
+    (4, 9, _w((-2, [-1, 0, 0, 0, 1]), (-1, [0, 9, 0, -9, 0]), (1, [0, -9, 0, 9, 0]),
+              (2, [1, 0, 0, 0, -1])),
+     _w((-2, [0, -1, 0, 1, 0]), (-1, [-1, 10, 0, -10, 1]), (1, [1, -10, 0, 10, -1]),
+        (2, [0, 1, 0, -1, 0]))),
+    (5, 2, _w((-1, [0, 2, -5, 2, 0]), (0, [1, 7, -14, 7, 1]), (1, [0, 2, -5, 2, 0])),
+     _w((0, [-1, 13, -24, 13, -1]))),
+    (6, 3, _w((-1, [0, 1, 0, -1, 0]), (0, [0, 2, 0, -2, 0]), (1, [0, 1, 0, -1, 0])), None),
+    (7, 10, _w((-1, [0, 1, -3, 1, 0]), (1, [0, -1, 3, -1, 0])), None),
+    (8, 17, _w((-1, [0, 1, 0, -1, 0]), (0, [0, -3, 0, 3, 0]), (1, [0, 1, 0, -1, 0])), None),
+    (9, 24, _w((-1, [0, 1, 2, 1, 0]), (1, [0, -1, -2, -1, 0])), None),
+]
+_SMOOTH_DC = _w((-2, [-2, -6, -8, -6, -2]), (-1, [-6, 6, 42, 6, -6]), (0, [-8, 42, 152, 42, -8]),
+                (1, [-6, 6, 42, 6, -6]), (2, [-2, -6, -8, -6, -2]))
+_SMOOTH_NATURAL = [0] + [t[1] for t in _SMOOTH_TERMS]
+
+
+def _smoothing_ok(comps, qt) -> bool:
+    """jdcoefct.c's smoothing_ok once every scan is in (Pillow decodes in one
+    pass): every component has some DC bits and the ten quantisation entries
+    smoothing divides by non-zero, and some component has one of its first
+    nine AC coefficients not fully known."""
+    for c in comps:
+        if c.tq not in qt or not all(qt[c.tq][n] for n in _SMOOTH_NATURAL) or c.bits[0] < 0:
+            return False
+    return any(b != 0 for c in comps for b in c.bits[1:10])
+
+
+def _div_round(num, q, al=None):
+    """libjpeg's estimate from num: (q * 128 + |num|) // (q * 256) with num's
+    sign, its magnitude held under 2^al when al > 0."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al is not None and al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num >= 0, pred, -pred)
+
+
+def _smoothed(coef: np.ndarray, comp, q: np.ndarray, imcu_rows: int) -> np.ndarray:
+    """A component's coefficients (int64 [blocks, 64], zig-zag order) as
+    libjpeg-turbo's block smoothing hands them to the IDCT: each of the first
+    nine AC coefficients still 0 whose bits are not all known estimated from
+    the DC values of the 5 x 5 blocks around (its magnitude held under 2^Al);
+    where no AC coefficient of the component is known at all, all nine from a
+    wider kernel and the DC smoothed too. The neighbours repeat the edge
+    blocks; below, the rows follow libjpeg's count of block rows by iMCU row
+    (the MCU padding's rows are read where it reaches them)."""
+    bits = comp.bits[:10]
+    change_dc = all(b == -1 for b in bits[1:10])
+    hb, wb = -(-comp.height // 8), -(-comp.width // 8)
+    grid = coef.reshape(comp.blocks_y, comp.blocks_x, 64)
+    dc = grid[..., 0]
+    g = np.arange(hb)
+    rows = np.where(g // comp.v < imcu_rows - 1, comp.v, hb % comp.v or comp.v)
+    image_row, image_rows = (g // comp.v) * rows + g % comp.v, rows * imcu_rows
+    prev = np.where(image_row > 0, g - 1, g)
+    nxt = np.where(image_row < image_rows - 1, g + 1, g)
+    row_sel = [np.where(image_row > 1, g - 2, prev), prev, g, nxt,
+               np.where(image_row < image_rows - 2, g + 2, nxt)]
+    col = np.arange(wb)
+    col_sel = [np.clip(col + d, 0, wb - 1) for d in (-2, -1, 0, 1, 2)]
+    near = np.stack([np.stack([dc[r][:, cs] for cs in col_sel]) for r in row_sel])
+    out = grid[:hb, :wb].copy()
+    q00 = int(q[0])
+    for k, nat, w_all, w_known in _SMOOTH_TERMS:
+        w = w_all if change_dc else w_known
+        if bits[k] == 0 or w is None:
+            continue
+        pred = _div_round(q00 * np.tensordot(w, near, axes=([0, 1], [0, 1])), int(q[nat]),
+                          bits[k])
+        out[..., k] = np.where(out[..., k] == 0, pred, out[..., k])
+    if change_dc:
+        out[..., 0] = _div_round(q00 * np.tensordot(_SMOOTH_DC, near, axes=([0, 1], [0, 1])),
+                                 q00)
+    grid = grid.copy()
+    grid[:hb, :wb] = ((out + 0x8000) & 0xFFFF) - 0x8000     # JCOEF
+    return grid.reshape(-1, 64)
+
+
 def read_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> what `imageio.v2.imread` returns: uint8 [H, W] (gray),
     [H, W, 3] (RGB) or [H, W, 4] (CMYK, inverted as Pillow returns it)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qt, dc_luts, ac_luts = {}, {}, {}
-    comps, frame, kind, restart, adobe, jfif = [], None, None, 0, None, False
+    cond = jpeg_arith.Conditioning()
+    comps, frame, kind, arith, restart, adobe, jfif = [], None, None, False, 0, None, False
+    single_scan = None      # at the first scan: one scan of every component, not progressive
     pos = 2
     while True:
+        pos = jpeg_arith.marker_after(data, pos)    # libjpeg skips other bytes between markers
         if pos + 2 > len(data):
+            if single_scan:     # libjpeg has put out every row before it looks for EOI
+                break
             raise ValueError("JPEG ends before its end-of-image marker")
-        if data[pos] != 0xFF:
-            raise ValueError(f"JPEG: expected a marker at byte {pos}")
         marker = data[pos + 1]
         pos += 2
-        if marker == 0xFF:
-            pos -= 1
-            continue
         if marker == 0xD9:
             break
+        if marker in _PARAMETERLESS:
+            continue
+        if marker in _UNSUPPORTED_FRAMES:
+            raise ValueError(f"JPEG frame type 0x{marker:02X} (hierarchical, or JPG) is not "
+                             "read, as libjpeg reads none")
+        if marker not in _KNOWN:
+            raise ValueError(f"JPEG marker 0x{marker:02X} is reserved: libjpeg refuses it")
+        if marker == 0xD8:
+            raise ValueError("JPEG with a second start-of-image marker")
+        if marker in _SOF_KINDS and frame is not None:
+            raise ValueError("JPEG with a second frame header")
         if pos + 2 > len(data):
+            if single_scan:
+                break
             raise ValueError("JPEG ends inside a marker segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
+        if pos + length > len(data) and single_scan:
+            break
         body = data[pos + 2:pos + length]
         pos += length
         if marker in _SOF_KINDS:
             height, width, comps = _frame(body)
-            frame, kind = (height, width), _SOF_KINDS[marker]
-        elif 0xC5 <= marker <= 0xCF and marker not in (0xC8, 0xCC):
-            raise ValueError(f"JPEG frame type 0x{marker:02X} (arithmetic-coded or "
-                             "hierarchical) is not read")
+            frame, (kind, arith) = (height, width), _SOF_KINDS[marker]
+            if arith and kind == "lossless":
+                raise ValueError("arithmetic-coded lossless JPEG (SOF11): libjpeg-turbo reads "
+                                 "none")
+        elif marker == 0xCC:
+            cond.define(body)
         elif marker == 0xDB:
             i = 0
             while i < len(body):
@@ -613,6 +775,12 @@ def read_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
+            ns = body[0]
+            if single_scan:
+                raise ValueError("JPEG with a second scan after a scan of every component: "
+                                 "libjpeg expects its end-of-image marker there")
+            if single_scan is None:
+                single_scan = kind != "progressive" and ns == len(comps)
             unit = 1 if kind == "lossless" else 8
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
             mcus_x = -(-frame[1] // (unit * hmax))
@@ -624,23 +792,34 @@ def read_jpeg(data: bytes) -> np.ndarray:
                     c.blocks_x, c.blocks_y = mcus_x * c.h, mcus_y * c.v
                     c.coef = array("i", bytes(4 * 64 * c.blocks_x * c.blocks_y)) \
                         if kind != "lossless" else []
-            ns = body[0]
             by_id = {c.ident: c for c in comps}
             if any(body[1 + 2 * i] not in by_id for i in range(ns)):
                 raise ValueError("JPEG scan names a component the frame does not have")
-            scan = [(by_id[body[1 + 2 * i]], dc_luts.get(body[2 + 2 * i] >> 4),
-                     ac_luts.get(body[2 + 2 * i] & 15)) for i in range(ns)]
             ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
                 body[3 + 2 * ns] & 15
+            if kind == "progressive":
+                _check_progressive(ns, ss, se, ah, al)
+                for i in range(ns):
+                    by_id[body[1 + 2 * i]].bits[ss:se + 1] = [al] * (se + 1 - ss)
+            if arith:
+                scan = [(by_id[body[1 + 2 * i]], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
+                        for i in range(ns)]
+                mode = "sequential" if kind != "progressive" else \
+                    ("dc_" if ss == 0 else "ac_") + ("refine" if ah else "first")
+                units, n_mcu_x, n_mcu = _scan_layout(scan, mcus_x, mcus_y)
+                # libjpeg has been handed the 64 KiB blocks up to the end of this header
+                block = jpeg_arith.PILLOW_BLOCK
+                pos = jpeg_arith.decode_scan(data, pos, units, n_mcu_x, n_mcu, restart, mode,
+                                             ss, se, al, cond, block * ((pos - 1) // block + 1))
+                continue
+            scan = [(by_id[body[1 + 2 * i]], dc_luts.get(body[2 + 2 * i] >> 4),
+                     ac_luts.get(body[2 + 2 * i] & 15)) for i in range(ns)]
             need_dc = kind != "progressive" or (ss == 0 and ah == 0)
             need_ac = kind == "sequential" or (kind == "progressive" and ss > 0)
             if any((need_dc and dc is None) or (need_ac and ac is None) for _, dc, ac in scan):
                 raise ValueError("JPEG scan names a Huffman table the file does not define")
             segments, pos = _entropy_segments(data, pos)
             if kind == "progressive":
-                _check_progressive(ns, ss, se, ah, al)
-                for c, _, _ in scan:
-                    c.bits[ss:se + 1] = [al] * (se + 1 - ss)
                 _decode_progressive_scan(segments, scan, mcus_x, mcus_y, restart, ss, se, ah, al)
             elif kind == "lossless":
                 if not 1 <= ss <= 7:
@@ -651,10 +830,7 @@ def read_jpeg(data: bytes) -> np.ndarray:
     if frame is None or any(c.coef is None for c in comps) or (
             kind == "lossless" and any(c.samples is None for c in comps)):
         raise ValueError("JPEG without a complete frame")
-    if kind == "progressive" and all(c.bits[0] >= 0 for c in comps) \
-            and any(b != 0 for c in comps for b in c.bits[1:10]):
-        raise ValueError("progressive JPEG whose scans leave low coefficients' bits unknown: "
-                         "libjpeg smooths such blocks, which is not reproduced")
+    smooth = kind == "progressive" and _smoothing_ok(comps, qt)
 
     height, width = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
@@ -664,11 +840,13 @@ def read_jpeg(data: bytes) -> np.ndarray:
             plane = c.samples
         else:
             coef = np.frombuffer(c.coef, np.int32).astype(np.int64).reshape(-1, 64)
-            natural = np.empty_like(coef)
-            natural[:, ZIGZAG] = coef
             if c.tq not in qt:
                 raise ValueError(f"JPEG component {c.ident} names a missing quantisation table")
-            blocks = idct_islow((natural * qt[c.tq]).reshape(-1, 8, 8))
+            if smooth:
+                coef = _smoothed(coef, c, qt[c.tq], -(-height // (8 * vmax)))
+            natural = np.empty_like(coef)
+            natural[:, ZIGZAG] = coef
+            blocks = idct_islow(natural.reshape(-1, 8, 8), qt[c.tq].reshape(8, 8))
             plane = blocks.reshape(c.blocks_y, c.blocks_x, 8, 8).transpose(0, 2, 1, 3)
             plane = plane.reshape(c.blocks_y * 8, c.blocks_x * 8)
         planes.append(_upsample(plane, c, hmax, vmax, kind != "lossless")[:height, :width])

@@ -606,6 +606,11 @@ def make_fixtures(out_dir):
     pil("photo_1024_progressive.jpg", photo, format="JPEG", quality=90, progressive=True,
         subsampling=2)
     pil("photo_1024_baseline.jpg", photo, format="JPEG", quality=90, subsampling=2)
+    # arithmetic coding and block smoothing: written by tests/test_torch_jpeg_arith.py
+    from tests.test_torch_jpeg_arith import arith_fixture_files
+    files.update(arith_fixture_files(canvas, uv, photo, files["D.jpg"]))
+    for name in ("E", "F"):
+        np.save(os.path.join(out_dir, f"kp_{name}.npy"), kp)
     rng = np.random.default_rng(3)
     img = scene(23, 29, seed=4)
     gray = img[..., 0]
@@ -853,23 +858,31 @@ def test_jpegs_imageio_refuses(tmp_path, case):
     _both_raise(_write(tmp_path, "x.jpg", data))
 
 
-def test_progressive_needing_block_smoothing_raises(tmp_path):
+def test_progressive_needing_block_smoothing_raises(tmp_path, monkeypatch):
     """A progressive file that ends (with EOI) before its last scans leaves
-    coefficient bits unknown: libjpeg smooths its blocks, the port refuses."""
+    coefficient bits unknown: libjpeg smooths its blocks, and the port reads
+    it as imageio does, smoothing included (without the smoothing the
+    pixels differ). The name is from when the port refused such files."""
     img = scene(32, 40)
     data = jpeg_file(ycc_planes(img, [(1, 1)] * 3), mode="progressive",
                      scans=SCRIPTS["bands"], cut=5) + b"\xff\xd9"
     path = _write(tmp_path, "s.jpg", data)
     assert imageio.imread(path).shape == (32, 40, 3)
-    with pytest.raises(ValueError, match=r"s\.jpg: progressive JPEG .* smooths"):
-        iio.imread(str(path))
+    got = _check(path)
+    from mofanerf_tpu_torch.utils import jpeg
+    monkeypatch.setattr(jpeg, "_smoothing_ok", lambda comps, qt: False)
+    assert (iio.imread(str(path)) != got).any()
 
 
 def test_arithmetic_coding_raises(tmp_path):
+    """A Huffman-coded scan under an arithmetic-coded frame header (SOF9):
+    the arithmetic decoder reads the Huffman bits as libjpeg's does, and the
+    port returns imageio's array (the name is from when the port refused
+    SOF9); the header gives the size either way."""
     data = jpeg_file(ycc_planes(scene(16, 16), [(1, 1)] * 3))
     data = data.replace(b"\xff\xc0", b"\xff\xc9", 1)
-    with pytest.raises(ValueError, match=r"a\.jpg: JPEG frame type 0xC9"):
-        iio.imread(str(_write(tmp_path, "a.jpg", data)))
+    path = _write(tmp_path, "a.jpg", data)
+    _check(path)
     assert iio.image_size(str(tmp_path / "a.jpg")) == (16, 16)
 
 
@@ -1027,8 +1040,9 @@ def test_fixtures_match_their_manifest():
             [entry["shape"], entry["dtype"], entry["sha256"]], name
         got = _check(path)
         assert array_digest(got) == entry["sha256"], name
-    kp = np.load(os.path.join(FIXTURES, "kp_D.npy"))
-    assert kp.shape == (68, 2) and np.isfinite(kp).all()
+    for name in "DEF":
+        kp = np.load(os.path.join(FIXTURES, f"kp_{name}.npy"))
+        assert kp.shape == (68, 2) and np.isfinite(kp).all()
 
 
 # ---------------------------------------------------------------------------
@@ -1056,30 +1070,43 @@ def test_read_image_matches_jax(name):
                                atol=1e-5 * max(1.0, float(np.abs(want).max())))
 
 
-def test_wild_pipeline_on_the_progressive_photo_matches_jax(tmp_path, capsys):
-    """preprocess_dir of both packages on the committed progressive 4:2:0
-    photo D.jpg (chip_smoke.py's canvas) and its landmarks, without networks:
-    the same files, poses within 1e-6, PNGs within 1 level (as
-    tests/test_torch_wild_preprocess.py holds the pipeline)."""
+def _wild_pipeline_matches_jax(tmp_path, capsys, name):
+    """preprocess_dir of both packages on the committed photo `name`.jpg
+    and its landmarks, without networks: the same files, poses within 1e-6,
+    PNGs within 1 level (as tests/test_torch_wild_preprocess.py holds the
+    pipeline)."""
     lm3d = face_landmarks(sample_identity_params(2, 0)[1], 0).astype(np.float64)
     dirs = {k: tmp_path / k for k in ("jax", "port")}
     for d in dirs.values():
         d.mkdir()
-        for name in ("D.jpg", "kp_D.npy"):
-            shutil.copy(os.path.join(FIXTURES, name), d / name)
+        for f in (f"{name}.jpg", f"kp_{name}.npy"):
+            shutil.copy(os.path.join(FIXTURES, f), d / f)
     jpipe.preprocess_dir(str(dirs["jax"]), landmarks_3d=lm3d)
     tpipe.preprocess_dir(str(dirs["port"]), landmarks_3d=lm3d, device="cpu")
     capsys.readouterr()
     listing = {k: sorted(os.path.relpath(os.path.join(r, f), d) for r, _, fs in os.walk(d)
                          for f in fs) for k, d in dirs.items()}
     assert listing["port"] == listing["jax"]
-    pj, pt = (np.load(d / "pose_D.npy", allow_pickle=True).item() for d in dirs.values())
+    pj, pt = (np.load(d / f"pose_{name}.npy", allow_pickle=True).item() for d in dirs.values())
     for k in ("pose", "kp"):
         np.testing.assert_allclose(pt[k], pj[k], rtol=0, atol=1e-6)
     for sub in ("raw", "mask", "segRes", "segRelRes"):
-        a, b = (iio.imread(str(d / sub / "D.png")).astype(int) for d in dirs.values())
+        a, b = (iio.imread(str(d / sub / f"{name}.png")).astype(int) for d in dirs.values())
         assert a.shape == b.shape == (512, 512, 3) or a.shape == b.shape == (512, 512)
         assert np.abs(a - b).max() <= 1, sub
+
+
+def test_wild_pipeline_on_the_progressive_photo_matches_jax(tmp_path, capsys):
+    """The progressive 4:2:0 photo D.jpg (chip_smoke.py's canvas)."""
+    _wild_pipeline_matches_jax(tmp_path, capsys, "D")
+
+
+@pytest.mark.parametrize("name", ["E", "F"], ids=["arithmetic", "smoothed"])
+def test_wild_pipeline_on_the_arithmetic_and_smoothed_photos_matches_jax(tmp_path, capsys,
+                                                                          name):
+    """E.jpg (D's canvas, progressive arithmetic-coded) and F.jpg (D.jpg ended
+    before its last refinement scans, smoothed by libjpeg as it reads it)."""
+    _wild_pipeline_matches_jax(tmp_path, capsys, name)
 
 
 if __name__ == "__main__":
