@@ -139,6 +139,16 @@ Phases, each failing loudly:
      at the studies' shapes (f32 fields of 8x64 and 8x128 at a 64^2 frame's packet and at
      distillation's 8192 points; the avatar and quick students) against their plain
      versions, timed in turns with them, beside their bounds.
+  14. the JAX package's Orbax steps, after the convert phase (orbax_phase):
+     every step of mofanerf_tpu_torch/testdata/orbax (zarr v2 and v3, with
+     and without OCDBT, numbered manifests, inner chunks not stored, the
+     narrow model; written by tests/torch_orbax_fixtures.py) read on the
+     host against its manifest, each restore timed; run_render --ckpt_dir on
+     a copy of the zarr v3 model step (2 views at 128x128) through the field
+     kernel, its launches counted (a coarse and a fine one a packet), against
+     render_frame from load_model's params of the same step; the kernel at
+     the model's two packet shapes against its plain version. The formats
+     phase also reads the broken-scan JPEGs and fits G.jpg.
   The path phases check shapes, ranges, that the kernel's launch count is
   the expected one, and that a small frame or step agrees with the CPU; the
   distillation phase also that the loss fell and that an artifact served from
@@ -234,13 +244,19 @@ DD_STEPS, DD_CHUNK, DD_INTERVALS, DD_TIMED = 16, 4, (5, 6), 8
 # (arithmetic, progressive) pairs of turns of the arithmetic photo's, more of them: its ratio
 # to the progressive decode spread from 1.12x to 1.43x over two runs of 2 turns
 FORMATS_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "formats")
+# the Orbax phase: the committed steps, and the side and views of run_render's frames from the
+# zarr v3 model step
+ORBAX_DIR = os.path.join(REPO, "mofanerf_tpu_torch", "testdata", "orbax")
+ORBAX_SIDE, ORBAX_VIEWS = 128, 2
 FORMATS_FIT_ITERS, FORMATS_TRAIN_STEPS, FORMATS_DECODE_TURNS = 10, 2, 2
 FORMATS_ARITH_TURNS = 6
 FORMATS_WEBP = {"lossy": "photo_1024_q80.webp", "lossless": "face_512_lossless.webp"}
 FORMATS_ARITH = {"arithmetic": "photo_1024_arith.jpg", "progressive": "photo_1024_progressive.jpg"}
-# the wild photos of the formats phase: the progressive D, its arithmetic-coded E, the smoothed F
+# the wild photos of the formats phase: the progressive D, its arithmetic-coded E, the smoothed F,
+# G with a scan that breaks off
 FORMATS_PHOTOS = {"D": "progressive 4:2:0", "E": "progressive arithmetic-coded 4:2:0",
-                  "F": "progressive, ended before its last refinement scans: smoothed"}
+                  "F": "progressive, ended before its last refinement scans: smoothed",
+                  "G": "progressive, a middle scan broken off before its marker"}
 
 # the examples phase (mofanerf_tpu_torch/examples), after the formats phase: distill_morphable
 # at half its JAX budgets (3000 + 9000 steps took over the 150 s given it on the card), the
@@ -1451,6 +1467,120 @@ def convert_phase(failures, card, dev, H=CONVERT_SIDE):
     if not uv_err <= 1e-6:
         fail(failures, f"convert: bilinear_sample differs between card and CPU by {uv_err}")
     out["bilinear_max_abs_err"] = uv_err
+    out["card"] = card
+    return out
+
+
+def orbax_phase(failures, card, dev, H=ORBAX_SIDE):
+    """The JAX package's Orbax steps as committed in mofanerf_tpu_torch/testdata/orbax
+    (tests/torch_orbax_fixtures.py wrote them; the card machine has no orbax): each
+    step read on the host (train/orbax.py over utils/ocdbt.py and utils/zstd.py) and
+    held against its manifest (each leaf's shape, dtype and SHA-256), its restore timed;
+    run_render --ckpt_dir on a copy of the zarr v3 model step through the field kernel,
+    its launches counted with the count zeroed just before, against render_frame from
+    the same step's params (the tree read above, mapped by the bridge as load_model maps
+    it); the kernel at the model's two packet shapes against its plain version."""
+    import shutil
+
+    import torch
+
+    from mofanerf_tpu_torch.bridge import model_params_to_torch
+    from mofanerf_tpu_torch.config import load_config
+    from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.render.renderer import (exp_code_for, prepare_conditioning,
+                                                    render_frame)
+    from mofanerf_tpu_torch.train.orbax import read_step
+    from mofanerf_tpu_torch.utils.tree import flatten_with_keystr
+
+    def digest(t):
+        t = t.contiguous()
+        return _digest((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy())
+
+    with open(os.path.join(ORBAX_DIR, "manifest.json")) as f:
+        steps = json.load(f)["steps"]
+    out = {"restore_ms": {}, "leaves": {}}
+    off = []
+    for name, entry in sorted(steps.items()):
+        t0 = time.perf_counter()
+        tree = read_step(os.path.join(ORBAX_DIR, name, entry["step"]))
+        out["restore_ms"][name] = (time.perf_counter() - t0) * 1e3
+        if name == "model_zarr3":
+            model_tree = tree
+        got = {k: [list(t.shape), str(t.dtype).removeprefix("torch."), digest(t)]
+               for k, t in flatten_with_keystr(tree)}
+        want = {k: [v["shape"], v["dtype"], v["sha256"]] for k, v in entry["leaves"].items()}
+        out["leaves"][name] = len(got)
+        if got != want:
+            off.append(name)
+    print(f"orbax: {len(steps)} committed steps read on the host against their manifest "
+          f"({sum(out['leaves'].values())} leaves): {len(steps) - len(off)} equal by shape, "
+          f"dtype and SHA-256, differing {off}; restore ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["restore_ms"].items())
+          + f"; host of {card}", flush=True)
+    if off:
+        fail(failures, f"orbax: steps whose leaves differ from the manifest: {off}")
+
+    entry = steps["model_zarr3"]
+    flags = [f"--{k}={v}" for k, v in entry["flags"].items()]
+    spec = load_config(flags).model_spec()
+    packets = -(-H * H // spec.render.packet_size)
+    expected = 2 * packets * ORBAX_VIEWS
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        shutil.copytree(os.path.join(ORBAX_DIR, "model_zarr3"), ckpt)
+        torch.cuda.synchronize()
+        fk.launch_count = 0
+        t0 = time.perf_counter()
+        frames, printed = run_cli(["--out_dir", os.path.join(tmp, "frames"), "--ckpt_dir", ckpt,
+                                   "--n_views", str(ORBAX_VIEWS), "--render_factor",
+                                   str(512 // H), "--basedir", os.path.join(tmp, "logs"),
+                                   "--uvdir", os.path.join(tmp, "uv"),
+                                   "--shape_codes_path", os.path.join(tmp, "none.npy"),
+                                   "--device", str(dev)] + flags)
+        torch.cuda.synchronize()
+        out["render_s"] = time.perf_counter() - t0
+        out["launches"] = fk.launch_count
+    params = model_params_to_torch(model_tree["params"], spec, dev)
+    zeros = lambda n: torch.zeros(n, device=dev)
+    with torch.no_grad():
+        cond = prepare_conditioning(params, spec, zeros(spec.shape_dim),
+                                    exp_code_for(params, 0), zeros(spec.tex_dim))
+    focal = 1200.0 / (512 // H)
+    K = np.array([[focal, 0, 0.5 * H], [0, focal, 0.5 * H], [0, 0, 1]], np.float32)
+    diffs = []
+    for i, a in enumerate(np.linspace(-180, 180, ORBAX_VIEWS + 1)[:-1]):
+        want = render_frame(params, spec, cond, H, H, K, pose_spherical(a, 0.0, 16.0)[:3])
+        diffs.append(float(np.abs(frames[i] - want["rgb"].cpu().numpy()).max()))
+    out["max_abs_diff"] = max(diffs)
+    out["mean_acc"] = float(want["acc"].mean())
+    loaded = f"loaded checkpoint (step {int(entry['step'])})" in printed
+    print(f"orbax: run_render --ckpt_dir <the zarr v3 model step> {ORBAX_VIEWS} views {H}x{H} "
+          f"in {out['render_s']:.3f} s (the restore included; step message found: {loaded}"
+          f"); max|frame - render_frame| "
+          f"{out['max_abs_diff']:.3e} (tol 1e-6); mean acc {out['mean_acc']:.3f}; field kernel "
+          f"launches {out['launches']} (expected {expected}: a coarse and a fine one a packet)",
+          flush=True)
+    if out["launches"] != expected:
+        fail(failures, f"orbax: field kernel launches {out['launches']} != {expected}")
+    if frames.shape != (ORBAX_VIEWS, H, H, 3) or not np.isfinite(frames).all() \
+            or out["max_abs_diff"] > 1e-6 or not loaded:
+        fail(failures, f"orbax: run_render's frames differ from render_frame's by "
+                       f"{out['max_abs_diff']}, or the step was not restored")
+    # the kernel at the model's packet shapes, against its plain version
+    gen = torch.Generator().manual_seed(41)
+    codes = [torch.randn(n, generator=gen).to(dev) * 0.3 for n in (50, 30, 256)]
+    rays = min(spec.render.packet_size, H * H)
+    out["rows"] = {}
+    for name, cfg, ns in (("coarse", spec.coarse, spec.render.n_coarse),
+                          ("fine", spec.fine, spec.render.n_coarse + spec.render.n_importance)):
+        out["rows"][name] = field_row(failures, card, dev, gen, codes, "orbax model", name,
+                                      cfg.compute_dtype, (cfg.depth, cfg.width, rays, ns), 43,
+                                      multires=cfg.multires,
+                                      multires_views=cfg.multires_views)
+        out["rows"][name].update(depth=cfg.depth, width=cfg.width,
+                                 design="field_kernel_wgmma.cuh" if fk.uses_wgmma(cfg)
+                                 else "field_kernel_mma.cuh")
     out["card"] = card
     return out
 
@@ -3305,9 +3435,10 @@ def formats_phase(failures, card, dev, render_flags, tmp):
     CPU) and its header size; the decode time of a 1024^2 photo, progressive
     against baseline, and arithmetic-coded against progressive, in turns;
     wild_preprocess on the wild phase's photos A-C with the progressive photo
-    D.jpg, its arithmetic-coded copy E.jpg and the smoothed F.jpg (D ended
-    before its last refinement scans) beside them, then run_fit on each of
-    D-F's relit photos; run_train on the training fixture with each
+    D.jpg, its arithmetic-coded copy E.jpg, the smoothed F.jpg (D ended
+    before its last refinement scans) and G.jpg (D with a middle scan broken
+    off before its marker) beside them, then run_fit on each of D-G's relit
+    photos; run_train on the training fixture with each
     identity's UV map replaced by the progressive one, then by the sequential
     arithmetic-coded one, its held-out render counted. Every path counts the
     field kernel's launches with the count zeroed just before and read just
@@ -3336,7 +3467,8 @@ def formats_phase(failures, card, dev, render_flags, tmp):
                 or list(image_size(path)) != entry["shape"][:2]:
             off.append(name)
     print(f"formats: {len(manifest)} committed files (PNG, BMP, progressive and baseline JPEG, "
-          f"arithmetic-coded and smoothed JPEG, WebP lossy, lossless, with alpha and animated) "
+          f"arithmetic-coded, smoothed and broken-scan JPEG, WebP lossy, lossless, with alpha "
+          f"and animated) "
           f"decoded on the host against their manifest: {len(manifest) - len(off)} equal by "
           f"SHA-256, shape, dtype and header size, differing {off}; ms a file "
           + ", ".join(f"{k} {v:.1f}" for k, v in decode_ms.items()), flush=True)
@@ -3625,9 +3757,11 @@ def examples_phase(failures, card, dev, tmp):
     return runs, shapes
 
 
-def field_row(failures, card, dev, gen, codes, tag, label, dtype, shape, seed, min_iters=10):
+def field_row(failures, card, dev, gen, codes, tag, label, dtype, shape, seed, min_iters=10,
+              **cfg_kw):
     """The field kernel at `shape` (depth, width, rays, samples a ray; points with one
-    sample) with seeded weights and the random `codes` folded in, against its plain
+    sample; `cfg_kw` the rest of its FieldConfig) with seeded weights and the random
+    `codes` folded in, against its plain
     version on the card (the error, at FIELD_TOL of `dtype`) and timed in turns with it
     (CUDA events), beside its bound: bf16 products at PEAK_BF16, f32 ones as three TF32
     products (and the FFMA bound beside), or the bytes."""
@@ -3638,7 +3772,7 @@ def field_row(failures, card, dev, gen, codes, tag, label, dtype, shape, seed, m
     from mofanerf_tpu_torch.ops import field_kernel as fk
 
     depth, width, n_rays, ns = shape
-    cfg = FieldConfig(depth=depth, width=width, compute_dtype=dtype)
+    cfg = FieldConfig(depth=depth, width=width, compute_dtype=dtype, **cfg_kw)
     params = init_field_params(gen, cfg, device=dev)
     fused = fk.pack_fused_params(params, fold_conditioning(params, *codes), cfg)
     w_dirs = params["view"]["w_dirs"]
@@ -4648,6 +4782,10 @@ def main(argv) -> int:
     converted = convert_phase(failures, card, dev)
     print(f"path phase (convert: reference .tar -> convert_ckpt -> run_render): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    orbax = orbax_phase(failures, card, dev)
+    print(f"path phase (Orbax: the committed steps, run_render from the zarr v3 model step): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
         t0 = time.perf_counter()
         train_launches, final, train_cfg, batches, render_flags = train_phase(
@@ -4687,8 +4825,8 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         formats = formats_phase(failures, card, dev, render_flags, work)
         print(f"path phase (image formats: the committed files, wild_preprocess -> run_fit on "
-              f"a progressive, an arithmetic-coded and a smoothed photo, run_train with a "
-              f"progressive and an arithmetic-coded UV map): "
+              f"a progressive, an arithmetic-coded, a smoothed and a broken-scan photo, "
+              f"run_train with a progressive and an arithmetic-coded UV map): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         examples, example_shapes = examples_phase(failures, card, dev, work)
@@ -4708,6 +4846,7 @@ def main(argv) -> int:
     print(f"kernel phase (the flagship chain's shapes): {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"convert": converted}), flush=True)
+    print(json.dumps({"orbax": {k: v for k, v in orbax.items() if k != "rows"}}), flush=True)
     print(json.dumps({"distill": dist}), flush=True)
     print(json.dumps({"fit": dict(fitted, card=card)}), flush=True)
     print(json.dumps({"refine": dict(refined, card=card)}), flush=True)
@@ -4836,6 +4975,22 @@ def main(argv) -> int:
                 "padded_bound_ms": row["padded_bound_ms"],
                 "library_ms": None,
             })
+    # the Orbax route's narrow model, bf16: each field once a packet
+    for name, row in orbax["rows"].items():
+        field_entries.append({
+            "name": f"fused_field_apply[orbax model {name} {row['depth']}x{row['width']} bf16, "
+                    f"{row['rays']}x{row['samples']}]",
+            "route": "cuda",
+            "source": f"mofanerf_tpu_torch/csrc/{row['design']}",
+            "replaces": "mofanerf_tpu/ops/pallas_field.py:238",
+            "launches": orbax["launches"] // 2,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
     # the studies' shapes: their launches at that shape in the examples phase's runs
     for label, row in example_rows.items():
         part, shape = example_shape(label)

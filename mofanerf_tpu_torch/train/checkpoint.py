@@ -9,10 +9,11 @@ writes a temporary file and renames it, so a save at an existing step
 replaces it whole.
 
 The JAX package saves a step as an Orbax directory, `<ckpt_dir>/<step:06d>/`.
-The port restores those too (`train/orbax.py` reads them without Orbax; the
-bridge's functions map the JAX layout onto the port's), so a run trained
-with the JAX package renders, fits and resumes here; the port's own saves
-are always `.pt`.
+The port restores those too, in every layout Orbax's restore reads (zarr v2
+or v3, with OCDBT or without, numbered manifests; `train/orbax.py` reads
+them without Orbax; the bridge's functions map the JAX layout onto the
+port's), so a run trained with the JAX package renders, fits and resumes
+here; the port's own saves are always `.pt`.
 """
 from __future__ import annotations
 

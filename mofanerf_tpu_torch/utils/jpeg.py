@@ -18,7 +18,16 @@ returns for a JPEG (Pillow over libjpeg-turbo 3, at Pillow's defaults).
 - Markers as libjpeg reads them: other bytes between markers skipped, RSTn
   and TEM without a length; a frame of one scan of every component may end
   after that scan (libjpeg has put out every row before it looks for EOI),
-  any other must reach its EOI.
+  any other must reach its EOI. Segment lengths and tables checked as
+  jdmarker.c and Pillow's header parser check them; a sequential frame
+  without Huffman tables 0 and 1 gets the standard ones (jstdhuff.c).
+- Scans that break off (`_ScanReader`): data that ends at a marker before
+  its MCUs do is read as libjpeg reads it, zero bits to finish the MCU and
+  the rest of the restart interval left as it stands (a lossless scan
+  finishes its MCU row); missing or out-of-order restart markers resync as
+  jpeg_resync_to_restart does; a Huffman code no table entry matches
+  decodes as 0 after 17 bits. Block smoothing takes, for the rows past the
+  last scan's data, the progression status from before that scan.
 - Colour, as libjpeg picks it and Pillow returns it: 1 component -> uint8
   [H, W]; 3 -> [H, W, 3], YCbCr unless an Adobe marker says RGB (transform
   0) without a JFIF marker, or the component ids are "R", "G", "B"; 4 ->
@@ -27,14 +36,19 @@ returns for a JPEG (Pillow over libjpeg-turbo 3, at Pillow's defaults).
 - Refused (ValueError), where imageio refuses too: samples of other than 8
   bits, 2-component frames, non-integral sampling ratios, lossless YCbCr or
   YCCK (libjpeg-turbo converts no lossless colours), lossless restart
-  intervals that are not whole MCU rows, truncated data, arithmetic-coded
+  intervals that are not whole MCU rows, data that runs past the file's end,
+  bad segment lengths and Huffman or quantisation tables, arithmetic-coded
   lossless (SOF11) and hierarchical frames (SOF5-SOF7, SOF13-SOF15), reserved
   markers, an arithmetic-coded scan that needs bytes past the 64 KiB blocks
-  Pillow has handed libjpeg (`jpeg_arith.py`).
+  Pillow has handed libjpeg (`jpeg_arith.py`); no other exception type on
+  the cut and bit-flipped files tried. One file imageio reads is refused: a sequential file whose
+  data ends the file with no marker (a damaged EOI), which libjpeg finishes
+  when its bit reader never has to refill past the end.
 - A small baseline encoder (4:4:4, the Annex K quantisation and Huffman
   tables)."""
 from __future__ import annotations
 
+import re
 import struct
 from array import array
 
@@ -108,9 +122,14 @@ def _canonical_codes(counts, symbols):
 
 def _lookup_table(counts, symbols):
     """A 65536-entry table: the next 16 bits of the stream -> length << 8 | symbol
-    (0 where no code matches)."""
+    (0 where no code matches); None for counts that need a code of all ones
+    or longer than its length, which jdhuff.c refuses when a scan uses the
+    table."""
+    codes = _canonical_codes(counts, symbols)
+    if any(code >> length or code == (1 << length) - 1 for _, code, length in codes):
+        return None
     lut = [0] * 65536
-    for sym, code, length in _canonical_codes(counts, symbols):
+    for sym, code, length in codes:
         start = code << (16 - length)
         lut[start:start + (1 << (16 - length))] = [(length << 8) | sym] * (1 << (16 - length))
     return lut
@@ -291,28 +310,92 @@ class _Component:
         self.blocks_x = self.blocks_y = 0   # the MCU-padded block grid
         self.width = self.height = 0        # samples the component really has
         self.bits = [-1] * 64               # progressive: the last Al of each coefficient
+        self.prev_bits = [-1] * 64          # ... before the last scan of this component
+        self.q = None                       # the quantisation table latched at its first scan
         self.samples = None                 # lossless: the decoded samples
 
 
-def _entropy_segments(data: bytes, pos: int):
-    """The entropy-coded bytes after an SOS, split at restart markers and
-    unstuffed, and the position of the marker that ends them."""
-    segments, start, i = [], pos, pos
-    n = len(data)
-    while True:
-        i = data.find(b"\xff", i)
-        if i < 0 or i + 1 >= n:
+_UNSTUFF = re.compile(rb"\xff+\x00")
+_i16 = jpeg_arith._i16
+_BAD_CODE = 17 << 8     # what a code no table entry matches decodes as: 17 bits, symbol 0
+_PAD = 4096     # zero bytes after an interval's data: more than one MCU of a DCT scan reads
+
+
+class _ScanReader:
+    """A Huffman scan's entropy-coded data as libjpeg reads it (jdhuff.c's
+    bit reader over jdmarker.c's read_restart_marker and
+    jpeg_resync_to_restart).
+
+    A restart interval's data runs to the next marker, which is then latched;
+    fill_bit_buffer reads a run of 0xFF bytes then 0x00 as one 0xFF, and a
+    run before a marker code as padding. A decoder that needs bits past the
+    data reads zeros to finish its MCU, and `insufficient` is set: the
+    interval's later MCUs are left as they stand. At a restart the latched
+    marker is resolved by `jpeg_arith.resync_action`; a marker left latched
+    gives the interval no data, and `insufficient` is cleared only when none
+    is. `last_good` is the iMCU row of the last MCU begun with data
+    (jdcoefct.c's last_good_iMCU_row, which block smoothing reads)."""
+
+    def __init__(self, data: bytes, pos: int, pad: int = _PAD):
+        self.data, self.pos, self.pad = data, pos, pad
+        self.marker, self.marker_pos = 0, pos
+        self.insufficient, self.next_rst, self.last_good = False, 0, -1
+        self.buf, self.n_bits = b"", 0
+
+    def _latch(self) -> int:
+        """Latch the next marker (jdmarker.c's next_marker); the position
+        where the data before its 0xFF run ends."""
+        i = jpeg_arith.marker_after(self.data, self.pos)
+        if i >= len(self.data):
             raise ValueError("JPEG entropy-coded data runs past the end of the file")
-        nxt = data[i + 1]
-        if nxt == 0x00 or nxt == 0xFF:
-            i += 1 if nxt == 0xFF else 2
-            continue
-        segments.append(data[start:i].replace(b"\xff\x00", b"\xff"))
-        if 0xD0 <= nxt <= 0xD7:
-            i += 2
-            start = i
-            continue
-        return segments, i
+        end = i
+        while end > self.pos and self.data[end - 1] == 0xFF:
+            end -= 1
+        self.marker, self.marker_pos, self.pos = self.data[i + 1], i, i + 2
+        return end
+
+    def _restart(self) -> None:
+        while True:
+            action = jpeg_arith.resync_action(self.marker, self.next_rst)
+            if action == 1:
+                self.marker = 0
+                break
+            if action == 3:
+                break
+            self._latch()
+        self.next_rst = (self.next_rst + 1) & 7
+        if not self.marker:
+            self.insufficient = False
+
+    def intervals(self, n_units: int, per: int, row_of):
+        """Yield the first unit (MCU, or MCU row of a lossless scan) of each
+        restart interval of `per` units and the units it holds, with
+        `self.buf` (the interval's data and `pad` zero bytes) and
+        `self.n_bits` (its bits of data) set; `row_of(unit)` is its iMCU
+        row."""
+        for start in range(0, n_units, per):
+            if not self.insufficient:   # consume_data's test precedes the restart
+                self.last_good = row_of(start)
+            if start:
+                self._restart()
+            seg = b""
+            if not self.marker:
+                begin = self.pos
+                seg = _UNSTUFF.sub(b"\xff", self.data[begin:self._latch()])
+            self.buf, self.n_bits = seg + bytes(self.pad), 8 * len(seg)
+            yield start, min(per, n_units - start)
+
+    def mcus(self, n_mcu: int, restart: int, row_of):
+        """Yield (MCU, whether it begins its interval) for each MCU that
+        libjpeg decodes: the MCUs of an interval up to the one that read past
+        its data (the decoder sets `insufficient` after it)."""
+        for start, count in self.intervals(n_mcu, restart or n_mcu, row_of):
+            for mcu in range(start, start + count):
+                if self.insufficient:
+                    break
+                if mcu > start:
+                    self.last_good = row_of(mcu)
+                yield mcu, mcu == start
 
 
 def _scan_layout(scan, mcus_x, mcus_y, unit=8):
@@ -330,24 +413,16 @@ def _scan_layout(scan, mcus_x, mcus_y, unit=8):
     return [(c, scan[0][1], scan[0][2], 0, 0)], n_x, n_x * -(-c.height // unit)
 
 
-def _intervals(segments, n_mcu, restart):
-    """(segment, MCUs in it) for each restart interval of a scan."""
-    per = restart if restart else n_mcu
-    if len(segments) < -(-n_mcu // per):
-        raise ValueError("JPEG scan holds fewer restart intervals than its MCUs need")
-    return [(segments[i], min(per, n_mcu - i * per)) for i in range(-(-n_mcu // per))]
-
-
 def _receive_dc(buf, p, table):
     """One DC difference (or lossless difference) at bit `p` of `buf`: its
     Huffman category, then that many bits, sign-extended (T.81 F.2.2.1); the
-    category 16 of lossless JPEG has no extra bits (H.1.2.2). -> (diff, p)."""
+    category 16 of lossless JPEG has no extra bits (H.1.2.2). A code no
+    table entry matches reads 17 bits and decodes as 0, as jdhuff.c's
+    jpeg_huff_decode fakes it. -> (diff, p)."""
     q = p >> 3
     win = int.from_bytes(buf[q:q + 5], "big")
     o = p & 7
-    code = table[(win >> (24 - o)) & 0xFFFF]
-    if not code:
-        raise ValueError("JPEG: invalid Huffman code")
+    code = table[(win >> (24 - o)) & 0xFFFF] or _BAD_CODE
     ln, s = code >> 8, code & 0xFF
     p += ln
     if not s:
@@ -367,7 +442,7 @@ def _correct(coef, base, k, se, r, buf, p, p1, m1):
         c = coef[base + k]
         if c:
             if (buf[p >> 3] >> (7 - (p & 7))) & 1 and not c & p1:
-                coef[base + k] = c + (p1 if c >= 0 else m1)
+                coef[base + k] = _i16(c + (p1 if c >= 0 else m1))
             p += 1
         else:
             r -= 1
@@ -377,149 +452,149 @@ def _correct(coef, base, k, se, r, buf, p, p1, m1):
     return k, p
 
 
-def _decode_scan(segments, scan, mcus_x, mcus_y, restart):
+def _row_of(interleaved, n_mcu_x, scan):
+    """An MCU's iMCU row: its MCU row, or in a one-component scan (an MCU a
+    block) its block row over the component's vertical sampling factor."""
+    v = 1 if interleaved else scan[0][0].v
+    return lambda mcu: mcu // n_mcu_x // v
+
+
+def _decode_scan(rd, scan, mcus_x, mcus_y, restart):
     """Huffman-decode one sequential scan into each component's coefficients.
-    `scan`: [(component, dc table, ac table)]."""
+    `scan`: [(component, dc table, ac table)]; `rd` the scan's _ScanReader.
+    A run past the last zig-zag index lands on index 63, as jdhuff.c's
+    natural-order table's extra entries put it."""
     interleaved = len(scan) > 1
     units, n_mcu_x, n_mcu = _scan_layout(scan, mcus_x, mcus_y)
-    mcu = 0
-    for seg, count in _intervals(segments, n_mcu, restart):
-        buf = seg + b"\x00" * 8
-        p = 0
-        preds = {id(u[0]): 0 for u in units}
-        for _ in range(count):
-            my, mx = divmod(mcu, n_mcu_x)
-            for comp, dcl, acl, dy, dx in units:
-                if interleaved:
-                    by, bx = my * comp.v + dy, mx * comp.h + dx
-                else:
-                    by, bx = my, mx
-                coef = comp.coef
-                base = (by * comp.blocks_x + bx) * 64
-                diff, p = _receive_dc(buf, p, dcl)
-                pred = preds[id(comp)] + diff
-                preds[id(comp)] = pred
-                coef[base] = pred
-                k = 1
-                while k < 64:
-                    q = p >> 3
-                    win = int.from_bytes(buf[q:q + 5], "big")
-                    o = p & 7
-                    code = acl[(win >> (24 - o)) & 0xFFFF]
-                    if not code:
-                        raise ValueError("JPEG: invalid Huffman code")
-                    ln, rs = code >> 8, code & 0xFF
-                    p += ln
-                    s = rs & 15
-                    if not s:
-                        if rs != 0xF0:
-                            break           # end of block
-                        k += 16
-                        continue
-                    k += rs >> 4
-                    o += ln
-                    bits = (win >> (40 - o - s)) & ((1 << s) - 1)
-                    p += s
-                    if k < 64:
-                        coef[base + k] = bits if bits >> (s - 1) else bits - (1 << s) + 1
-                    k += 1
-            mcu += 1
+    for mcu, first in rd.mcus(n_mcu, restart, _row_of(interleaved, n_mcu_x, scan)):
+        if first:
+            buf, n_bits, p = rd.buf, rd.n_bits, 0
+            preds = {id(u[0]): 0 for u in units}
+        my, mx = divmod(mcu, n_mcu_x)
+        for comp, dcl, acl, dy, dx in units:
+            if interleaved:
+                by, bx = my * comp.v + dy, mx * comp.h + dx
+            else:
+                by, bx = my, mx
+            coef = comp.coef
+            base = (by * comp.blocks_x + bx) * 64
+            diff, p = _receive_dc(buf, p, dcl)
+            pred = preds[id(comp)] + diff
+            preds[id(comp)] = pred
+            coef[base] = ((pred + 0x8000) & 0xFFFF) - 0x8000     # a JCOEF
+            k = 1
+            while k < 64:
+                q = p >> 3
+                win = int.from_bytes(buf[q:q + 5], "big")
+                o = p & 7
+                code = acl[(win >> (24 - o)) & 0xFFFF] or _BAD_CODE
+                ln, rs = code >> 8, code & 0xFF
+                p += ln
+                s = rs & 15
+                if not s:
+                    if rs != 0xF0:
+                        break           # end of block
+                    k += 16
+                    continue
+                k += rs >> 4
+                o += ln
+                bits = (win >> (40 - o - s)) & ((1 << s) - 1)
+                p += s
+                coef[base + (k if k < 64 else 63)] = bits if bits >> (s - 1) \
+                    else bits - (1 << s) + 1
+                k += 1
+        if p > n_bits:
+            rd.insufficient = True
 
 
-def _decode_progressive_scan(segments, scan, mcus_x, mcus_y, restart, ss, se, ah, al):
+def _decode_progressive_scan(rd, scan, mcus_x, mcus_y, restart, ss, se, ah, al):
     """Huffman-decode one progressive scan (jdphuff.c) into the coefficients
     the earlier scans left: DC first (Ah = 0) or refinement, or an AC band
     Ss..Se of one component, first or refinement, with EOB runs."""
     interleaved = len(scan) > 1
     units, n_mcu_x, n_mcu = _scan_layout(scan, mcus_x, mcus_y)
     p1, m1 = 1 << al, -(1 << al)
-    mcu = 0
-    for seg, count in _intervals(segments, n_mcu, restart):
-        buf = seg + b"\x00" * 8
-        p = 0
-        preds = {id(u[0]): 0 for u in units}
-        eobrun = 0
-        for _ in range(count):
-            my, mx = divmod(mcu, n_mcu_x)
-            mcu += 1
-            for comp, dcl, acl, dy, dx in units:
-                if interleaved:
-                    by, bx = my * comp.v + dy, mx * comp.h + dx
-                else:
-                    by, bx = my, mx
-                coef = comp.coef
-                base = (by * comp.blocks_x + bx) * 64
-                if ss == 0:
-                    if ah:      # DC refinement: one bit
-                        if (buf[p >> 3] >> (7 - (p & 7))) & 1:
-                            coef[base] |= p1
-                        p += 1
-                        continue
-                    diff, p = _receive_dc(buf, p, dcl)
-                    pred = preds[id(comp)] + diff
-                    preds[id(comp)] = pred
-                    coef[base] = pred * p1
+    for mcu, first in rd.mcus(n_mcu, restart, _row_of(interleaved, n_mcu_x, scan)):
+        if first:
+            buf, n_bits, p = rd.buf, rd.n_bits, 0
+            preds = {id(u[0]): 0 for u in units}
+            eobrun = 0
+        my, mx = divmod(mcu, n_mcu_x)
+        for comp, dcl, acl, dy, dx in units:
+            if interleaved:
+                by, bx = my * comp.v + dy, mx * comp.h + dx
+            else:
+                by, bx = my, mx
+            coef = comp.coef
+            base = (by * comp.blocks_x + bx) * 64
+            if ss == 0:
+                if ah:      # DC refinement: one bit
+                    if (buf[p >> 3] >> (7 - (p & 7))) & 1:
+                        coef[base] = _i16(coef[base] | p1)
+                    p += 1
                     continue
-                if ah == 0:     # AC first
-                    if eobrun:
-                        eobrun -= 1
-                        continue
-                    k = ss
-                    while k <= se:
-                        q = p >> 3
-                        win = int.from_bytes(buf[q:q + 5], "big")
-                        o = p & 7
-                        code = acl[(win >> (24 - o)) & 0xFFFF]
-                        if not code:
-                            raise ValueError("JPEG: invalid Huffman code")
-                        ln, rs = code >> 8, code & 0xFF
-                        p += ln
-                        r, s = rs >> 4, rs & 15
-                        o += ln
-                        if s:
-                            k += r
-                            bits = (win >> (40 - o - s)) & ((1 << s) - 1)
-                            p += s
-                            if k < 64:
-                                coef[base + k] = (bits if bits >> (s - 1)
-                                                  else bits - (1 << s) + 1) * p1
-                        elif r == 15:
-                            k += 15
-                        else:
-                            eobrun = (1 << r) + ((win >> (40 - o - r)) & ((1 << r) - 1)) - 1
-                            p += r
-                            break
-                        k += 1
-                    continue
-                # AC refinement: newly non-zero coefficients of magnitude 1 << al, and a
-                # correction bit for each coefficient that already holds a value
-                k = ss
-                if not eobrun:
-                    while k <= se:
-                        q = p >> 3
-                        win = int.from_bytes(buf[q:q + 5], "big")
-                        o = p & 7
-                        code = acl[(win >> (24 - o)) & 0xFFFF]
-                        if not code:
-                            raise ValueError("JPEG: invalid Huffman code")
-                        ln, rs = code >> 8, code & 0xFF
-                        p += ln
-                        r, s = rs >> 4, rs & 15
-                        if s:
-                            s = p1 if (buf[p >> 3] >> (7 - (p & 7))) & 1 else m1
-                            p += 1
-                        elif r != 15:
-                            o += ln
-                            eobrun = (1 << r) + ((win >> (40 - o - r)) & ((1 << r) - 1))
-                            p += r
-                            break
-                        k, p = _correct(coef, base, k, se, r, buf, p, p1, m1)
-                        if s and k < 64:
-                            coef[base + k] = s
-                        k += 1
+                diff, p = _receive_dc(buf, p, dcl)
+                pred = preds[id(comp)] + diff
+                preds[id(comp)] = pred
+                coef[base] = _i16(pred * p1)
+                continue
+            if ah == 0:     # AC first
                 if eobrun:
-                    _, p = _correct(coef, base, k, se, 64, buf, p, p1, m1)
                     eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    q = p >> 3
+                    win = int.from_bytes(buf[q:q + 5], "big")
+                    o = p & 7
+                    code = acl[(win >> (24 - o)) & 0xFFFF] or _BAD_CODE
+                    ln, rs = code >> 8, code & 0xFF
+                    p += ln
+                    r, s = rs >> 4, rs & 15
+                    o += ln
+                    if s:
+                        k += r
+                        bits = (win >> (40 - o - s)) & ((1 << s) - 1)
+                        p += s
+                        coef[base + (k if k < 64 else 63)] = _i16(
+                            (bits if bits >> (s - 1) else bits - (1 << s) + 1) * p1)
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + ((win >> (40 - o - r)) & ((1 << r) - 1)) - 1
+                        p += r
+                        break
+                    k += 1
+                continue
+            # AC refinement: newly non-zero coefficients of magnitude 1 << al, and a
+            # correction bit for each coefficient that already holds a value
+            k = ss
+            if not eobrun:
+                while k <= se:
+                    q = p >> 3
+                    win = int.from_bytes(buf[q:q + 5], "big")
+                    o = p & 7
+                    code = acl[(win >> (24 - o)) & 0xFFFF] or _BAD_CODE
+                    ln, rs = code >> 8, code & 0xFF
+                    p += ln
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        s = p1 if (buf[p >> 3] >> (7 - (p & 7))) & 1 else m1
+                        p += 1
+                    elif r != 15:
+                        o += ln
+                        eobrun = (1 << r) + ((win >> (40 - o - r)) & ((1 << r) - 1))
+                        p += r
+                        break
+                    k, p = _correct(coef, base, k, se, r, buf, p, p1, m1)
+                    if s:
+                        coef[base + (k if k < 64 else 63)] = s
+                    k += 1
+            if eobrun:
+                _, p = _correct(coef, base, k, se, 64, buf, p, p1, m1)
+                eobrun -= 1
+        if p > n_bits:
+            rd.insufficient = True
 
 
 # lossless predictors 1-7 (T.81 Table H.1) of the samples left (a), above (b), above-left (c)
@@ -528,34 +603,47 @@ _PREDICTORS = {1: lambda a, b, c: a, 2: lambda a, b, c: b, 3: lambda a, b, c: c,
                6: lambda a, b, c: b + ((a - c) >> 1), 7: lambda a, b, c: (a + b) >> 1}
 
 
-def _decode_lossless_scan(segments, scan, mcus_x, mcus_y, restart, predictor, pt):
+def _decode_lossless_scan(rd, scan, mcus_x, mcus_y, restart, predictor, pt):
     """Huffman-decode one lossless scan (jdlhuff.c) into each component's
-    differences, then undo the prediction (jdlossls.c) row by row: the first
-    row of each restart interval predicts from the left (its first sample
-    from 2^(P - Pt - 1)), the first column from above."""
+    differences, an MCU row at a time, then undo the prediction (jdlossls.c)
+    an iMCU row at a time. The first row of an iMCU row whose undifferencer
+    was reset (the scan's first, a restart, a row decoded after the data ran
+    out) predicts from the left, its first sample from 2^(P - Pt - 1); every
+    other first column from above. The MCU row that runs past its interval's
+    data reads zeros to its end; later rows of the interval are zero."""
     interleaved = len(scan) > 1
     units, n_mcu_x, n_mcu = _scan_layout(scan, mcus_x, mcus_y, unit=1)
     if restart and restart % n_mcu_x:
         raise ValueError(f"lossless JPEG restart interval {restart} is not a whole number of "
                          f"MCU rows ({n_mcu_x} MCUs)")
+    n_rows = n_mcu // n_mcu_x
     diffs = {id(c): np.zeros((c.blocks_y, c.blocks_x), np.int64) for c, _, _ in scan}
-    mcu = 0
-    for seg, count in _intervals(segments, n_mcu, restart):
-        buf = seg + b"\x00" * 8
+    resets = {id(c): set() for c, _, _ in scan}    # iMCU rows whose undifferencer restarts
+
+    def imcu(comp, row):
+        return row if interleaved else row // comp.v
+
+    rd.pad = n_mcu_x * len(units) * 4 + 16
+    for start, count in rd.intervals(n_rows, restart // n_mcu_x if restart else n_rows,
+                                     lambda row: row):
         p = 0
-        for _ in range(count):
-            my, mx = divmod(mcu, n_mcu_x)
-            mcu += 1
-            for comp, dcl, _, dy, dx in units:
-                y, x = (my * comp.v + dy, mx * comp.h + dx) if interleaved else (my, mx)
-                diffs[id(comp)][y, x], p = _receive_dc(buf, p, dcl)
-    rows_per_interval = (restart // n_mcu_x if restart else mcus_y)
+        for my in range(start, start + count):
+            if my == start or rd.insufficient:
+                for comp, _, _ in scan:
+                    resets[id(comp)].add(imcu(comp, my))
+            if rd.insufficient:
+                continue
+            for mx in range(n_mcu_x):
+                for comp, dcl, _, dy, dx in units:
+                    y, x = (my * comp.v + dy, mx * comp.h + dx) if interleaved else (my, mx)
+                    diffs[id(comp)][y, x], p = _receive_dc(rd.buf, p, dcl)
+            if p > rd.n_bits:
+                rd.insufficient = True
     for comp, _, _ in scan:
         d = diffs[id(comp)].tolist()
-        v = comp.v if interleaved else 1
         out = []
         for y, row in enumerate(d):
-            if y % (rows_per_interval * v) == 0:    # the first row of a restart interval
+            if y % comp.v == 0 and y // comp.v in resets[id(comp)]:
                 acc, cur = 1 << (8 - pt - 1), []    # 2^(P - Pt - 1) at P = 8 bits
                 for dv in row:
                     acc = (acc + dv) & 0xFFFF
@@ -584,6 +672,67 @@ def _frame(body):
         raise ValueError(f"JPEG frame of {height} x {width} samples")
     return height, width, [_Component(body[6 + 3 * i], body[7 + 3 * i] >> 4,
                                       body[7 + 3 * i] & 15, body[8 + 3 * i]) for i in range(nc)]
+
+
+def _check_length(marker, body, length):
+    """jdmarker.c's checks of a SOFn, SOS or DRI segment's `length`, made
+    once the fields they need are read: `body` may be cut short by the
+    file's end (libjpeg then waits for more, and Pillow gives up)."""
+    n = length - 2
+    cut = len(body) < n
+    if marker == 0xDD:
+        ok = n == 2
+    elif marker == 0xDA:
+        ok = (1 <= body[0] <= 4 and n == 4 + 2 * body[0]) if body else cut
+    else:
+        ok = n == 6 + 3 * body[5] if len(body) >= 6 else cut
+    if not ok:
+        raise ValueError(f"JPEG marker 0x{marker:02X} segment of a bad length ({length})")
+
+
+def _quant_tables(body, length):
+    """{table: int64 [64] natural order} of a DQT segment of `length`; a
+    table cut short by the segment's end is refused, as libjpeg-turbo 3 and
+    Pillow's header parser refuse it. `body` may be cut short by the file's
+    end: the tables read up to there."""
+    out, i, n_body = {}, 0, length - 2
+    if n_body < 0:
+        raise ValueError("JPEG DQT segment of a bad length")
+    while i < n_body and i < len(body):
+        pq, tq = body[i] >> 4, body[i] & 15
+        if tq >= 4:
+            raise ValueError(f"JPEG quantisation table {tq} (at most 3)")
+        n = 64 * (2 if pq else 1)
+        if n_body - i - 1 < n:
+            raise ValueError("JPEG DQT segment ends inside a table")
+        if i + 1 + n > len(body):
+            break
+        table = np.empty(64, np.int64)
+        table[ZIGZAG] = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
+        out[tq] = table
+        i += 1 + n
+    return out
+
+
+def _huffman_tables(body, length):
+    """[(class, table, counts, symbols)] of a DHT segment of `length`, as
+    jdmarker.c's get_dht checks it; `body` may be cut short by the file's
+    end, as in _quant_tables."""
+    out, i, n_body = [], 0, length - 2
+    while n_body - i > 16 and i + 17 <= len(body):
+        index, counts = body[i], list(body[i + 1:i + 17])
+        n = sum(counts)
+        if n > 256 or n > n_body - i - 17:
+            raise ValueError("JPEG Huffman table of more symbols than its segment holds")
+        if i + 17 + n > len(body):
+            break
+        if index & ~0x10 >= 4:
+            raise ValueError(f"JPEG Huffman table index 0x{index:02X}")
+        out.append((index >> 4, index & 3, counts, list(body[i + 17:i + 17 + n])))
+        i += 17 + n
+    if i == len(body) == n_body or (len(body) < n_body and n_body - i > 16):
+        return out
+    raise ValueError("JPEG DHT segment of a bad length")
 
 
 def _check_progressive(ns, ss, se, ah, al):
@@ -639,13 +788,13 @@ _SMOOTH_DC = _w((-2, [-2, -6, -8, -6, -2]), (-1, [-6, 6, 42, 6, -6]), (0, [-8, 4
 _SMOOTH_NATURAL = [0] + [t[1] for t in _SMOOTH_TERMS]
 
 
-def _smoothing_ok(comps, qt) -> bool:
+def _smoothing_ok(comps) -> bool:
     """jdcoefct.c's smoothing_ok once every scan is in (Pillow decodes in one
-    pass): every component has some DC bits and the ten quantisation entries
-    smoothing divides by non-zero, and some component has one of its first
+    pass): every component has a latched table, some DC bits and the ten
+    quantisation entries smoothing divides by non-zero, and some component has one of its first
     nine AC coefficients not fully known."""
     for c in comps:
-        if c.tq not in qt or not all(qt[c.tq][n] for n in _SMOOTH_NATURAL) or c.bits[0] < 0:
+        if c.q is None or not all(c.q[n] for n in _SMOOTH_NATURAL) or c.bits[0] < 0:
             return False
     return any(b != 0 for c in comps for b in c.bits[1:10])
 
@@ -659,7 +808,7 @@ def _div_round(num, q, al=None):
     return np.where(num >= 0, pred, -pred)
 
 
-def _smoothed(coef: np.ndarray, comp, q: np.ndarray, imcu_rows: int) -> np.ndarray:
+def _smoothed(coef: np.ndarray, comp, imcu_rows: int, bits) -> np.ndarray:
     """A component's coefficients (int64 [blocks, 64], zig-zag order) as
     libjpeg-turbo's block smoothing hands them to the IDCT: each of the first
     nine AC coefficients still 0 whose bits are not all known estimated from
@@ -667,8 +816,10 @@ def _smoothed(coef: np.ndarray, comp, q: np.ndarray, imcu_rows: int) -> np.ndarr
     where no AC coefficient of the component is known at all, all nine from a
     wider kernel and the DC smoothed too. The neighbours repeat the edge
     blocks; below, the rows follow libjpeg's count of block rows by iMCU row
-    (the MCU padding's rows are read where it reaches them)."""
-    bits = comp.bits[:10]
+    (the MCU padding's rows are read where it reaches them). `bits`: the
+    component's progression status (the last Al of each coefficient)."""
+    q = comp.q
+    bits = bits[:10]
     change_dc = all(b == -1 for b in bits[1:10])
     hb, wb = -(-comp.height // 8), -(-comp.width // 8)
     grid = coef.reshape(comp.blocks_y, comp.blocks_x, 64)
@@ -700,14 +851,28 @@ def _smoothed(coef: np.ndarray, comp, q: np.ndarray, imcu_rows: int) -> np.ndarr
     return grid.reshape(-1, 64)
 
 
+def _smoothed_rows(coef, comp, imcu_rows, last_good, n_scans):
+    """Block smoothing as decompress_smooth_data picks the status for each
+    iMCU row: past `last_good` (the last scan ran out of data above them;
+    None: it did not) the status before each component's last scan (all
+    unknown when the file has one scan)."""
+    out = _smoothed(coef, comp, imcu_rows, comp.bits)
+    if last_good is None:
+        return out
+    before = comp.prev_bits if n_scans > 1 else [-1] * 64
+    late = np.repeat(np.arange(comp.blocks_y) // comp.v > last_good, comp.blocks_x)
+    return np.where(late[:, None], _smoothed(coef, comp, imcu_rows, before), out)
+
+
 def read_jpeg(data: bytes) -> np.ndarray:
     """JPEG bytes -> what `imageio.v2.imread` returns: uint8 [H, W] (gray),
     [H, W, 3] (RGB) or [H, W, 4] (CMYK, inverted as Pillow returns it)."""
-    if data[:2] != b"\xff\xd8":
+    if data[:3] != b"\xff\xd8\xff":      # Pillow's test of the file's first bytes
         raise ValueError("not a JPEG file")
     qt, dc_luts, ac_luts = {}, {}, {}
     cond = jpeg_arith.Conditioning()
     comps, frame, kind, arith, restart, adobe, jfif = [], None, None, False, 0, None, False
+    n_scans, last_good = 0, None
     single_scan = None      # at the first scan: one scan of every component, not progressive
     pos = 2
     while True:
@@ -720,6 +885,9 @@ def read_jpeg(data: bytes) -> np.ndarray:
         pos += 2
         if marker == 0xD9:
             break
+        if marker == 0x01 and single_scan is None:
+            raise ValueError("JPEG marker 0x01 before the first scan: Pillow's header parser "
+                             "refuses it")
         if marker in _PARAMETERLESS:
             continue
         if marker in _UNSUPPORTED_FRAMES:
@@ -736,10 +904,19 @@ def read_jpeg(data: bytes) -> np.ndarray:
                 break
             raise ValueError("JPEG ends inside a marker segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
-        if pos + length > len(data) and single_scan:
-            break
         body = data[pos + 2:pos + length]
-        pos += length
+        if marker in (0xDA, 0xDD) or marker in _SOF_KINDS:
+            _check_length(marker, body, length)
+        if pos + length > len(data):
+            if not single_scan:
+                raise ValueError("JPEG ends inside a marker segment")
+            # libjpeg reads the segment up to the file's end, then waits for more
+            if marker == 0xC4:
+                _huffman_tables(body, length)
+            elif marker == 0xDB:
+                _quant_tables(body, length)
+            break
+        pos += max(length, 2)   # jdmarker.c's skip_variable skips nothing for a length < 2
         if marker in _SOF_KINDS:
             height, width, comps = _frame(body)
             frame, (kind, arith) = (height, width), _SOF_KINDS[marker]
@@ -749,23 +926,11 @@ def read_jpeg(data: bytes) -> np.ndarray:
         elif marker == 0xCC:
             cond.define(body)
         elif marker == 0xDB:
-            i = 0
-            while i < len(body):
-                pq, tq = body[i] >> 4, body[i] & 15
-                n = 128 if pq else 64
-                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else np.uint8)
-                table = np.zeros(64, np.int64)
-                table[ZIGZAG] = vals
-                qt[tq] = table
-                i += 1 + n
+            qt.update(_quant_tables(body, length))
         elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = list(body[i + 1:i + 17])
-                symbols = list(body[i + 17:i + 17 + sum(counts)])
-                (ac_luts if tc else dc_luts)[th] = _lookup_table(counts, symbols)
-                i += 17 + sum(counts)
+            for tc, th, counts, symbols in _huffman_tables(body, length):
+                (ac_luts if tc else dc_luts)[th] = (_lookup_table(counts, symbols),
+                                                    max(symbols, default=0))
         elif marker == 0xDD:
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
@@ -795,12 +960,34 @@ def read_jpeg(data: bytes) -> np.ndarray:
             by_id = {c.ident: c for c in comps}
             if any(body[1 + 2 * i] not in by_id for i in range(ns)):
                 raise ValueError("JPEG scan names a component the frame does not have")
+            if len({body[1 + 2 * i] for i in range(ns)}) < ns:
+                raise ValueError("JPEG scan names a component twice")
+            if n_scans == 0 and kind == "sequential" and not arith:
+                # jstdhuff.c: jdhuff.c's start fills tables 0 and 1 the file leaves out
+                for luts, tables in ((dc_luts, (_DC_LUMA, _DC_CHROMA)),
+                                     (ac_luts, (_AC_LUMA, _AC_CHROMA))):
+                    for th, table in enumerate(tables):
+                        if th not in luts:
+                            luts[th] = (_lookup_table(*table), max(table[1]))
             ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, \
                 body[3 + 2 * ns] & 15
+            n_scans += 1
+            if kind != "lossless":      # jdinput.c's latch_quant_tables
+                for i in range(ns):
+                    c = by_id[body[1 + 2 * i]]
+                    if c.q is None:
+                        if c.tq not in qt:
+                            raise ValueError(f"JPEG component {c.ident} names a missing "
+                                             "quantisation table")
+                        c.q = qt[c.tq].copy()
             if kind == "progressive":
                 _check_progressive(ns, ss, se, ah, al)
+                lo, hi = min(ss, 1), max(se, 9)     # jdphuff.c's start_pass: the status before
                 for i in range(ns):
-                    by_id[body[1 + 2 * i]].bits[ss:se + 1] = [al] * (se + 1 - ss)
+                    c = by_id[body[1 + 2 * i]]
+                    c.prev_bits[lo:hi + 1] = (c.bits[lo:hi + 1] if n_scans > 1
+                                              else [0] * (hi + 1 - lo))
+                    c.bits[ss:se + 1] = [al] * (se + 1 - ss)
             if arith:
                 scan = [(by_id[body[1 + 2 * i]], body[2 + 2 * i] >> 4, body[2 + 2 * i] & 15)
                         for i in range(ns)]
@@ -811,26 +998,36 @@ def read_jpeg(data: bytes) -> np.ndarray:
                 block = jpeg_arith.PILLOW_BLOCK
                 pos = jpeg_arith.decode_scan(data, pos, units, n_mcu_x, n_mcu, restart, mode,
                                              ss, se, al, cond, block * ((pos - 1) // block + 1))
+                last_good = None    # jdarith.c never runs out of data: every row is good
                 continue
-            scan = [(by_id[body[1 + 2 * i]], dc_luts.get(body[2 + 2 * i] >> 4),
-                     ac_luts.get(body[2 + 2 * i] & 15)) for i in range(ns)]
             need_dc = kind != "progressive" or (ss == 0 and ah == 0)
             need_ac = kind == "sequential" or (kind == "progressive" and ss > 0)
-            if any((need_dc and dc is None) or (need_ac and ac is None) for _, dc, ac in scan):
-                raise ValueError("JPEG scan names a Huffman table the file does not define")
-            segments, pos = _entropy_segments(data, pos)
+            scan = []
+            for i in range(ns):
+                dc = dc_luts.get(body[2 + 2 * i] >> 4) if need_dc else (None, 0)
+                ac = ac_luts.get(body[2 + 2 * i] & 15) if need_ac else (None, 0)
+                if dc is None or ac is None:
+                    raise ValueError("JPEG scan names a Huffman table the file does not define")
+                # jdhuff.c's jpeg_make_d_derived_tbl: codes that fit, DC categories to 15
+                if (need_dc and (dc[0] is None or dc[1] > (16 if kind == "lossless" else 15))) \
+                        or (need_ac and ac[0] is None):
+                    raise ValueError("JPEG scan uses a bad Huffman table")
+                scan.append((by_id[body[1 + 2 * i]], dc[0], ac[0]))
+            rd = _ScanReader(data, pos)
             if kind == "progressive":
-                _decode_progressive_scan(segments, scan, mcus_x, mcus_y, restart, ss, se, ah, al)
+                _decode_progressive_scan(rd, scan, mcus_x, mcus_y, restart, ss, se, ah, al)
+                last_good = rd.last_good if rd.last_good < mcus_y - 1 else None
             elif kind == "lossless":
                 if not 1 <= ss <= 7:
                     raise ValueError(f"lossless JPEG predictor {ss} is not one of 1-7")
-                _decode_lossless_scan(segments, scan, mcus_x, mcus_y, restart, ss, al)
+                _decode_lossless_scan(rd, scan, mcus_x, mcus_y, restart, ss, al)
             else:
-                _decode_scan(segments, scan, mcus_x, mcus_y, restart)
+                _decode_scan(rd, scan, mcus_x, mcus_y, restart)
+            pos = rd.marker_pos
     if frame is None or any(c.coef is None for c in comps) or (
             kind == "lossless" and any(c.samples is None for c in comps)):
         raise ValueError("JPEG without a complete frame")
-    smooth = kind == "progressive" and _smoothing_ok(comps, qt)
+    smooth = kind == "progressive" and _smoothing_ok(comps)
 
     height, width = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
@@ -840,13 +1037,13 @@ def read_jpeg(data: bytes) -> np.ndarray:
             plane = c.samples
         else:
             coef = np.frombuffer(c.coef, np.int32).astype(np.int64).reshape(-1, 64)
-            if c.tq not in qt:
-                raise ValueError(f"JPEG component {c.ident} names a missing quantisation table")
             if smooth:
-                coef = _smoothed(coef, c, qt[c.tq], -(-height // (8 * vmax)))
+                coef = _smoothed_rows(coef, c, -(-height // (8 * vmax)), last_good, n_scans)
             natural = np.empty_like(coef)
             natural[:, ZIGZAG] = coef
-            blocks = idct_islow(natural.reshape(-1, 8, 8), qt[c.tq].reshape(8, 8))
+            # a component no scan named has no table: jddctmgr.c's zero multipliers
+            q = np.zeros(64, np.int64) if c.q is None else c.q
+            blocks = idct_islow(natural.reshape(-1, 8, 8), q.reshape(8, 8))
             plane = blocks.reshape(c.blocks_y, c.blocks_x, 8, 8).transpose(0, 2, 1, 3)
             plane = plane.reshape(c.blocks_y * 8, c.blocks_x * 8)
         planes.append(_upsample(plane, c, hmax, vmax, kind != "lossless")[:height, :width])

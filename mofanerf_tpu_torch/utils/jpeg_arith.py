@@ -213,26 +213,14 @@ def decode_scan(data: bytes, pos: int, units, n_mcu_x: int, n_mcu: int, restart:
         nonlocal marker, next_rst, a, c, ct
         if not marker:
             next_marker()
-        if marker == 0xD0 + next_rst:
-            marker = 0
-        else:
-            while True:
-                if marker < 0xC0:
-                    action = 2
-                elif not 0xD0 <= marker <= 0xD7:
-                    action = 3
-                elif marker in (0xD0 + ((next_rst + 1) & 7), 0xD0 + ((next_rst + 2) & 7)):
-                    action = 3
-                elif marker in (0xD0 + ((next_rst - 1) & 7), 0xD0 + ((next_rst - 2) & 7)):
-                    action = 2
-                else:
-                    action = 1
-                if action == 1:
-                    marker = 0
-                    break
-                if action == 3:
-                    break
-                next_marker()
+        while True:
+            action = resync_action(marker, next_rst)
+            if action == 1:
+                marker = 0
+                break
+            if action == 3:
+                break
+            next_marker()
         next_rst = (next_rst + 1) & 7
         for comp, td, ta in comps:
             if mode in ("sequential", "dc_first"):
@@ -390,6 +378,24 @@ def decode_scan(data: bytes, pos: int, units, n_mcu_x: int, n_mcu: int, restart:
                 break
     # where libjpeg reads its next marker: the one the coder met, else the next in the data
     return p - 2 if marker else marker_after(data, p)
+
+
+def resync_action(marker: int, next_rst: int) -> int:
+    """What libjpeg does at a restart with `marker` latched where it expects
+    RST`next_rst` (jdmarker.c's jpeg_resync_to_restart, the expected marker
+    included): 1 take the marker and go on with the data after it, 2 skip to
+    the next marker and decide again, 3 leave it latched (the interval reads
+    no data)."""
+    if marker < 0xC0:
+        return 2                            # not a valid marker
+    if not 0xD0 <= marker <= 0xD7:
+        return 3                            # a valid marker other than RSTn
+    ahead = (marker - 0xD0 - next_rst) & 7
+    if ahead in (1, 2):
+        return 3                            # one of the next two restarts
+    if ahead in (6, 7):
+        return 2                            # one of the two before
+    return 1                                # the expected one, or too far away
 
 
 def marker_after(data: bytes, pos: int) -> int:

@@ -23,17 +23,26 @@ common prefix. File paths are relative to the database's directory, so the
 values that an Orbax step's root database merges from `ocdbt.process_0/`
 are read from there.
 
-Only the newest version is read; the version tree nodes that index older
-ones are not needed for it. A numbered manifest is refused.
+A database of numbered manifests (config `manifest_kind` 1) keeps only its
+config in `manifest.ocdbt`; its versions are in `manifest.<16 hex digits>`
+files, the newest having the highest number, each a manifest of the same
+form (its own header and CRC-32C, the same uuid) whose body holds the data
+file table and versions after the config.
+
+Only the newest version is read. tensorstore keeps it among a manifest's
+inline versions (older ones move to version tree nodes), so those nodes are
+never read.
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, List, Tuple
 
 from mofanerf_tpu_torch.utils import zstd
 
 MANIFEST_MAGIC = 0x0CDB3A2A
+_NUMBERED = re.compile(r"^manifest\.[0-9a-fA-F]{16}$")
 NODE_MAGIC = 0x0CDB20DE
 
 Location = Tuple[str, int, int]   # (file relative to the database, offset, length)
@@ -137,6 +146,24 @@ def _file_table(r: _Reader) -> List[str]:
     return paths
 
 
+def _config(path: str):
+    """(uuid, manifest kind, the reader after the config) of the manifest
+    file `path`, its header and CRC-32C checked."""
+    with open(path, "rb") as f:
+        r = _unwrap(f.read(), MANIFEST_MAGIC, path)
+    uuid = r.raw(16)
+    kind = r.varint()
+    r.varint()   # max inline value bytes
+    r.varint()   # max decoded node bytes
+    r.byte()     # version tree arity (log2)
+    if r.varint() == 1:
+        r.varint()   # zstd level
+    extra = r.varints(3)
+    if any(extra):
+        raise OcdbtError(f"{path}: unknown config fields {extra}")
+    return uuid, kind, r
+
+
 def _keys(r: _Reader, n: int, interior: bool):
     prefix = [0] + r.varints(n - 1) if n else []
     suffix = r.varints(n)
@@ -156,20 +183,20 @@ class Database:
         path = os.path.join(root, "manifest.ocdbt")
         if not os.path.isfile(path):
             raise FileNotFoundError(f"no OCDBT manifest in {root}")
-        with open(path, "rb") as f:
-            r = _unwrap(f.read(), MANIFEST_MAGIC, path)
-        r.raw(16)   # uuid
-        kind = r.varint()
-        if kind != 0:
-            raise OcdbtError(f"{path}: numbered manifests are not read")
-        r.varint()   # max inline value bytes
-        r.varint()   # max decoded node bytes
-        r.byte()     # version tree arity (log2)
-        if r.varint() == 1:
-            r.varint()   # zstd level
-        extra = r.varints(3)
-        if any(extra):
-            raise OcdbtError(f"{path}: unknown config fields {extra}")
+        uuid, kind, r = _config(path)
+        if kind == 1:       # numbered: the versions are in the newest numbered manifest
+            if r.pos != len(r.data):
+                raise OcdbtError(f"{path}: a numbered database's config manifest holds more")
+            numbered = sorted((int(n[9:], 16), n) for n in os.listdir(root) if _NUMBERED.match(n))
+            if not numbered:
+                raise OcdbtError(f"{root}: numbered manifests, and none is there")
+            path = os.path.join(root, numbered[-1][1])
+            their_uuid, _, r = _config(path)
+            if their_uuid != uuid:
+                raise OcdbtError(f"{path}: uuid {their_uuid.hex()} is not the database's "
+                                 f"{uuid.hex()}")
+        elif kind != 0:
+            raise OcdbtError(f"{path}: manifest kind {kind}")
         files = _file_table(r)
         n = r.varint()
         if n == 0:

@@ -609,7 +609,10 @@ def make_fixtures(out_dir):
     # arithmetic coding and block smoothing: written by tests/test_torch_jpeg_arith.py
     from tests.test_torch_jpeg_arith import arith_fixture_files
     files.update(arith_fixture_files(canvas, uv, photo, files["D.jpg"]))
-    for name in ("E", "F"):
+    # broken-off scans: written by tests/test_torch_jpeg_broken.py
+    from tests.test_torch_jpeg_broken import broken_fixture_files
+    files.update(broken_fixture_files(canvas, files["D.jpg"]))
+    for name in ("E", "F", "G"):
         np.save(os.path.join(out_dir, f"kp_{name}.npy"), kp)
     rng = np.random.default_rng(3)
     img = scene(23, 29, seed=4)
@@ -870,7 +873,7 @@ def test_progressive_needing_block_smoothing_raises(tmp_path, monkeypatch):
     assert imageio.imread(path).shape == (32, 40, 3)
     got = _check(path)
     from mofanerf_tpu_torch.utils import jpeg
-    monkeypatch.setattr(jpeg, "_smoothing_ok", lambda comps, qt: False)
+    monkeypatch.setattr(jpeg, "_smoothing_ok", lambda comps: False)
     assert (iio.imread(str(path)) != got).any()
 
 
@@ -1040,7 +1043,7 @@ def test_fixtures_match_their_manifest():
             [entry["shape"], entry["dtype"], entry["sha256"]], name
         got = _check(path)
         assert array_digest(got) == entry["sha256"], name
-    for name in "DEF":
+    for name in "DEFG":
         kp = np.load(os.path.join(FIXTURES, f"kp_{name}.npy"))
         assert kp.shape == (68, 2) and np.isfinite(kp).all()
 
@@ -1107,6 +1110,12 @@ def test_wild_pipeline_on_the_arithmetic_and_smoothed_photos_matches_jax(tmp_pat
     """E.jpg (D's canvas, progressive arithmetic-coded) and F.jpg (D.jpg ended
     before its last refinement scans, smoothed by libjpeg as it reads it)."""
     _wild_pipeline_matches_jax(tmp_path, capsys, name)
+
+
+def test_wild_pipeline_on_the_broken_scan_photo_matches_jax(tmp_path, capsys):
+    """G.jpg (D.jpg with a stretch of a middle scan's data cut out, read as
+    libjpeg reads a scan that breaks off)."""
+    _wild_pipeline_matches_jax(tmp_path, capsys, "G")
 
 
 if __name__ == "__main__":

@@ -807,6 +807,32 @@ def test_container_variants(tmp_path, case):
     _check(tmp_path, _container_case(case))
 
 
+def test_exif_block_damaged_past_its_tiff_header(tmp_path):
+    """A still with Pillow's EXIF block (IFD0 and an Exif IFD), every byte
+    past the block's 8-byte TIFF header flipped, and the block cut after each
+    of those bytes (chunk and RIFF sizes kept whole): imageio reads every
+    one, Pillow's EXIF parser dropping what it cannot read, and so does the
+    port, value for value."""
+    ex = Image.Exif()
+    ex[0x010F], ex[0x0110], ex[0x8769] = "Maker", "Model", {0x9003: "2020:01:01 00:00:00"}
+    bio = io.BytesIO()
+    Image.fromarray(content("face", 24, 32, seed=1)).save(bio, format="WEBP", quality=80,
+                                                           exif=ex.tobytes())
+    data = bio.getvalue()
+    at = data.index(b"EXIF")
+    (n,) = struct.unpack("<I", data[at + 4:at + 8])
+    start, rest = at + 8, data[at + 8 + n + n % 2:]
+    variants = []
+    for k in range(8, n):
+        flipped = bytearray(data)
+        flipped[start + k] ^= 0xFF
+        variants.append(bytes(flipped))
+        body = data[:at] + chunk(b"EXIF", data[start:start + k]) + rest
+        variants.append(body[:4] + struct.pack("<I", len(body) - 8) + body[8:])
+    for i, v in enumerate(variants):
+        assert _check(tmp_path, v, f"e{i}.webp") is not None
+
+
 @pytest.mark.parametrize("kind", ["lossy", "lossy_alpha", "lossless", "lossless_alpha",
                                   "animation", "vp8_partitions"])
 def test_truncated_and_corrupted(tmp_path, kind):
