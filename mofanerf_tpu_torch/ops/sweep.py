@@ -4,8 +4,9 @@
 A closed-form ray/AABB slab test orders face-hitting rays first, only the
 first `hit_fraction` of rays (rounded up to whole packets) are rendered, and
 the rest scatter back as analytic background. hit_fraction=None measures the
-hit count on the host and buckets it up to a canonical fraction, so no
-foreground ray is dropped. Packets run in a Python loop, one call of
+hit count on the host (`profiling.host_read`: the card's queued work is
+waited for) and buckets it up to a canonical fraction, so no foreground ray
+is dropped. Packets run in a Python loop, one call of
 `ray_fn` each, with the same packet shapes and padding as the JAX package.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from mofanerf_tpu_torch.ops.bounds import ray_aabb_interval
 from mofanerf_tpu_torch.ops.rays import get_rays
+from mofanerf_tpu_torch.utils import profiling
 
 HIT_BUDGET_BUCKETS = (0.25, 0.5, 0.75, 1.0)
 
@@ -37,7 +39,7 @@ def compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fractio
     if hit_fraction is None or hit_fraction < 1.0:
         _, _, hit = ray_aabb_interval(ro_flat, rd_flat, aabb_min, aabb_max, near, far)
     if hit_fraction is None:
-        hit_fraction = bucket_fraction(float(hit.float().mean()))
+        hit_fraction = bucket_fraction(profiling.host_read(hit.float().mean()))
 
     if hit_fraction < 1.0:
         # hits first, in their original order (a stable sort, as jnp.argsort)
@@ -93,24 +95,34 @@ def sweep_rays(
     prepare: (rays_o, rays_d) -> per-ray tensors [n, ...], made once over
     every packet's rays (padding included) and handed to `ray_fn` as
     further arguments, a packet's rows each: per-ray work done in a few
-    large operations rather than a few small ones a packet."""
-    n = ro_flat.shape[0]
-    p = min(packet_size, n)
-    p = -(-p // packet_multiple) * packet_multiple
-    ro_flat, rd_flat, sel, n_eval = compact_rays(
-        ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction
-    )
+    large operations rather than a few small ones a packet.
 
-    n_pad = (-n_eval) % p
-    pad = torch.ones((n_pad, 3), dtype=ro_flat.dtype, device=ro_flat.device)
-    ro = torch.cat([ro_flat, pad]).reshape(-1, p, 3)
-    rd = torch.cat([rd_flat, pad]).reshape(-1, p, 3)
+    Spans (utils/profiling.py): `mofanerf.sweep.prepare` to the first packet,
+    `mofanerf.sweep.packet` around each `ray_fn` call,
+    `mofanerf.sweep.assemble` for the stack and the scatter."""
+    with profiling.annotate("mofanerf.sweep.prepare"):
+        n = ro_flat.shape[0]
+        p = min(packet_size, n)
+        p = -(-p // packet_multiple) * packet_multiple
+        ro_flat, rd_flat, sel, n_eval = compact_rays(
+            ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction
+        )
 
-    extras = () if prepare is None else tuple(
-        t.reshape((-1, p) + t.shape[1:]) for t in prepare(ro.reshape(-1, 3), rd.reshape(-1, 3)))
-    outs = [ray_fn(ro[i], rd[i], *(t[i] for t in extras)) for i in range(ro.shape[0])]
-    maps = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-    return scatter_background(maps, sel, n, n_eval, white_bkgd)
+        n_pad = (-n_eval) % p
+        pad = torch.ones((n_pad, 3), dtype=ro_flat.dtype, device=ro_flat.device)
+        ro = torch.cat([ro_flat, pad]).reshape(-1, p, 3)
+        rd = torch.cat([rd_flat, pad]).reshape(-1, p, 3)
+
+        extras = () if prepare is None else tuple(
+            t.reshape((-1, p) + t.shape[1:])
+            for t in prepare(ro.reshape(-1, 3), rd.reshape(-1, 3)))
+    outs = []
+    for i in range(ro.shape[0]):
+        with profiling.annotate("mofanerf.sweep.packet"):
+            outs.append(ray_fn(ro[i], rd[i], *(t[i] for t in extras)))
+    with profiling.annotate("mofanerf.sweep.assemble"):
+        maps = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        return scatter_background(maps, sel, n, n_eval, white_bkgd)
 
 
 def sweep_frame(
@@ -124,7 +136,8 @@ def sweep_frame(
 ) -> Dict[str, torch.Tensor]:
     """Render a full frame by sweeping `ray_fn` over fixed-size packets.
     Returns [H, W, ...] maps."""
-    rays_o, rays_d = get_rays(H, W, K, c2w)
+    with profiling.annotate("mofanerf.sweep.rays"):
+        rays_o, rays_d = get_rays(H, W, K, c2w)
     out = sweep_rays(ray_fn, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
                      packet_size, **kw)
     return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}

@@ -37,6 +37,7 @@ from mofanerf_tpu_torch.ops.sweep import (compact_rays, scatter_background, swee
                                           sweep_rays)
 from mofanerf_tpu_torch.parallel.collectives import data_rows, gather_blocks, pad_rows, padded_len
 from mofanerf_tpu_torch.parallel.mesh import axis_size
+from mofanerf_tpu_torch.utils import profiling
 from mofanerf_tpu_torch.utils.device import to_device
 
 Params = Dict[str, Any]
@@ -152,21 +153,25 @@ def render_frame_serve(
     `cond`; it folds into biases here so every packet runs as an
     unconditioned student's. `params` may also be the `pack_student` of
     folded params (cond None), so that a server packs an avatar once for
-    all its frames."""
-    if isinstance(cfg, StudentConfig) and cond is not None:
-        params, cond = fold_student_code(params, cond), None
-    pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
-    dev = _params_device(params)
-    lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
-    K, c2w = to_device(K, dev), to_device(c2w, dev)
+    all its frames.
 
-    packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
-    return sweep_frame(
-        lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), H, W, K, c2w, packet_size,
-        aabb_min=lo, aabb_max=hi, near=near, far=far,
-        hit_fraction=hit_fraction, white_bkgd=white_bkgd,
-        packet_multiple=_fused_block_multiple(fused), prepare=prepare,
-    )
+    The body is the span `mofanerf.serve.frame`; the frame's set-up here is
+    a `mofanerf.sweep.prepare` beside the sweep's own (ops/sweep.py)."""
+    with profiling.annotate("mofanerf.serve.frame"):
+        with profiling.annotate("mofanerf.sweep.prepare"):
+            if isinstance(cfg, StudentConfig) and cond is not None:
+                params, cond = fold_student_code(params, cond), None
+            pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
+            dev = _params_device(params)
+            lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
+            K, c2w = to_device(K, dev), to_device(c2w, dev)
+            packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
+        return sweep_frame(
+            lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), H, W, K, c2w, packet_size,
+            aabb_min=lo, aabb_max=hi, near=near, far=far,
+            hit_fraction=hit_fraction, white_bkgd=white_bkgd,
+            packet_multiple=_fused_block_multiple(fused), prepare=prepare,
+        )
 
 
 def render_path_serve(
@@ -197,33 +202,39 @@ def render_path_serve(
     whole stream alike, the compacted rays are padded to packets x n_data
     and split over the mesh's `data` axis, each rank sweeps its block, and
     the maps are gathered on every rank before the background scatter: the
-    same maps as one card's."""
-    if isinstance(cfg, StudentConfig) and cond is not None:
-        params, cond = fold_student_code(params, cond), None
-    dev = _params_device(params)
-    lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
-    K, poses = to_device(K, dev), to_device(poses, dev)
+    same maps as one card's.
 
-    F = poses.shape[0]
-    ro, rd = [], []
-    for i in range(F):
-        o, d = get_rays(H, W, K, poses[i][:3])
-        ro.append(o.reshape(-1, 3))
-        rd.append(d.reshape(-1, 3))
-    ro = torch.cat(ro)
-    rd = torch.cat(rd)
+    The body is the span `mofanerf.serve.path`, its rays `mofanerf.sweep.rays`
+    and its set-up a `mofanerf.sweep.prepare`, as render_frame_serve's."""
+    with profiling.annotate("mofanerf.serve.path"):
+        with profiling.annotate("mofanerf.sweep.prepare"):
+            if isinstance(cfg, StudentConfig) and cond is not None:
+                params, cond = fold_student_code(params, cond), None
+            dev = _params_device(params)
+            lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
+            K, poses = to_device(K, dev), to_device(poses, dev)
+            pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
+            packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
 
-    pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
-    packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
-    ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
-    kw = dict(aabb_min=lo, aabb_max=hi, near=near, far=far, hit_fraction=hit_fraction,
-              white_bkgd=white_bkgd, packet_multiple=_fused_block_multiple(fused),
-              prepare=prepare)
-    if mesh is None:
-        out = sweep_rays(ray_fn, ro, rd, packet_size, **kw)
-    else:
-        out = _sharded_sweep(ray_fn, ro, rd, packet_size, mesh, **kw)
-    return {k: v.reshape((F, H, W) + v.shape[1:]) for k, v in out.items()}
+        F = poses.shape[0]
+        with profiling.annotate("mofanerf.sweep.rays"):
+            ro, rd = [], []
+            for i in range(F):
+                o, d = get_rays(H, W, K, poses[i][:3])
+                ro.append(o.reshape(-1, 3))
+                rd.append(d.reshape(-1, 3))
+            ro = torch.cat(ro)
+            rd = torch.cat(rd)
+
+        ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
+        kw = dict(aabb_min=lo, aabb_max=hi, near=near, far=far, hit_fraction=hit_fraction,
+                  white_bkgd=white_bkgd, packet_multiple=_fused_block_multiple(fused),
+                  prepare=prepare)
+        if mesh is None:
+            out = sweep_rays(ray_fn, ro, rd, packet_size, **kw)
+        else:
+            out = _sharded_sweep(ray_fn, ro, rd, packet_size, mesh, **kw)
+        return {k: v.reshape((F, H, W) + v.shape[1:]) for k, v in out.items()}
 
 
 def _sharded_sweep(ray_fn, ro, rd, packet_size, mesh, aabb_min, aabb_max, near, far,

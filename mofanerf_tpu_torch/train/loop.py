@@ -47,6 +47,7 @@ from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_co
 from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from mofanerf_tpu_torch.train.state import (Batch, create_train_state, make_optimizer,
                                             train_step)
+from mofanerf_tpu_torch.utils import profiling
 from mofanerf_tpu_torch.utils.device import resolve_device, to_device
 from mofanerf_tpu_torch.utils.image_io import write_png
 from mofanerf_tpu_torch.utils.logger import TrainLogger
@@ -170,10 +171,12 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
         return _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir,
                                   grid, density_ema, save, start, n_total, seed, uv_cache,
                                   rng_eval, dev)
-    t0 = time.time()
-    batches = Prefetcher(
-        lambda i: make_batch(i, cfg, spec, ds, K, sampler, rng, uv_cache, dev), depth=2,
-    ).iterate(start, n_total)
+    def sample(i):
+        with profiling.annotate("mofanerf.train.sample"):
+            return make_batch(i, cfg, spec, ds, K, sampler, rng, uv_cache, dev)
+
+    t_last, i_last = time.perf_counter(), start
+    batches = Prefetcher(sample, depth=2).iterate(start, n_total)
     for i, batch in zip(range(start, n_total), batches):
         state, metrics = train_step(state, batch, step_generator(seed, i, dev), spec, tx)
 
@@ -181,9 +184,8 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
             grid, density_ema = _update_grid(cfg, spec, state.params, batch, grid, density_ema)
 
         if (i + 1) % cfg.i_print == 0:
-            loss, psnr = float(metrics["loss"]), float(metrics["psnr"])
-            ok = int(metrics["step_ok"])
-            rate = (i + 1 - start) / (time.time() - t0)
+            loss, psnr, ok = _read_metrics(metrics)
+            rate, t_last, i_last = _rate(i + 1, i_last, t_last)
             print(f"[TRAIN] iter {i + 1} loss {loss:.5f} psnr {psnr:.2f} ok {ok} "
                   f"it/s {rate:.2f}", flush=True)
             logger.write(i + 1, Loss=loss, PSNR=psnr, step_ok=ok)
@@ -201,6 +203,20 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
     save(n_total, state, grid, density_ema)
     logger.note("training finished")
     return state
+
+
+def _read_metrics(metrics: dict) -> tuple:
+    """(loss, psnr, step_ok) of a step's metrics, read back from the card."""
+    return (profiling.host_read(metrics["loss"]), profiling.host_read(metrics["psnr"]),
+            int(profiling.host_read(metrics["step_ok"])))
+
+
+def _rate(i: int, i_last: int, t_last: float) -> tuple:
+    """(steps a second since the last print, now, i): the print's reads have
+    waited for the card, so the interval holds exactly its steps (the first
+    one, the loop's start-up too)."""
+    now = time.perf_counter()
+    return (i - i_last) / (now - t_last), now, i
 
 
 def _auto_scan_steps(cfg: Config, n_total: int) -> int:
@@ -232,10 +248,12 @@ def train_chunk_device_data(state, store: DeviceDataset, K: torch.Tensor, i0: in
     (train_step(mesh=)). Returns (state, the last step's metrics)."""
     dev = store.images.device
     metrics = None
-    for i in range(i0, i0 + n_steps):
-        batch = sample_batch_device(store, K, i, scfg, device_generator(seed, i, 0, dev))
-        state, metrics = train_step(state, batch, device_generator(seed, i, 1, dev), spec, tx,
-                                    mesh=mesh)
+    with profiling.annotate("mofanerf.train.chunk"):
+        for i in range(i0, i0 + n_steps):
+            with profiling.annotate("mofanerf.train.sample"):
+                batch = sample_batch_device(store, K, i, scfg, device_generator(seed, i, 0, dev))
+                draws = device_generator(seed, i, 1, dev)
+            state, metrics = train_step(state, batch, draws, spec, tx, mesh=mesh)
     return state, metrics
 
 
@@ -260,7 +278,7 @@ def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, 
     logger.note(f"device-data path: {dd.images.shape[0]} frames resident, bias={bias}, "
                 f"{C} steps a chunk")
 
-    t0 = time.time()
+    t_last, i_last = time.perf_counter(), start
     i = start
     metrics = None
     while i < n_total:
@@ -278,9 +296,8 @@ def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, 
                                              density_ema)
 
         if crossed(cfg.i_print):
-            loss, psnr = float(metrics["loss"]), float(metrics["psnr"])
-            ok = int(metrics["step_ok"])
-            rate = (i - start) / (time.time() - t0)
+            loss, psnr, ok = _read_metrics(metrics)
+            rate, t_last, i_last = _rate(i, i_last, t_last)
             print(f"[TRAIN] iter {i} loss {loss:.5f} psnr {psnr:.2f} ok {ok} it/s {rate:.2f}",
                   flush=True)
             logger.write(i, Loss=loss, PSNR=psnr, step_ok=ok)

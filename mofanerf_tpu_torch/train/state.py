@@ -30,6 +30,7 @@ from mofanerf_tpu_torch.parallel.collectives import (ModelAxis, all_reduce_mean,
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 init_model_params, prepare_conditioning,
                                                 render_rays, train_draws)
+from mofanerf_tpu_torch.utils import profiling
 from mofanerf_tpu_torch.utils.device import f32_products, resolve_device
 from mofanerf_tpu_torch.utils.metrics import img2mse, mse2psnr
 from mofanerf_tpu_torch.utils.tree import map_tree, tree_leaves, tree_unflatten
@@ -130,15 +131,18 @@ def loss_fn(params: Params, spec: MoFaNeRF, batch: Batch,
     """(MSE(fine) + MSE(coarse), MSE(fine)) of a batch, differentiable in
     `params`. The random draws come from `draws` or `generator`. With the
     model axis `tp`, a fine field in column blocks runs tensor-parallel."""
-    tex = encode_texture(params, spec, batch.uv_map)
-    cond = prepare_conditioning(params, spec, batch.shape_code,
-                                exp_code_for(params, batch.exp_type), tex, tp)
-    out = render_rays(params, spec, cond, batch.rays_o, batch.rays_d, generator=generator,
-                      train=True, draws=draws, autograd=True, tp=tp)
-    img_loss = img2mse(out["rgb"], batch.target_rgb)
-    loss = img_loss
-    if "rgb0" in out:
-        loss = loss + img2mse(out["rgb0"], batch.target_rgb)
+    with profiling.annotate("mofanerf.train.encode"):
+        tex = encode_texture(params, spec, batch.uv_map)
+    with profiling.annotate("mofanerf.train.condition"):
+        cond = prepare_conditioning(params, spec, batch.shape_code,
+                                    exp_code_for(params, batch.exp_type), tex, tp)
+    with profiling.annotate("mofanerf.train.forward"):
+        out = render_rays(params, spec, cond, batch.rays_o, batch.rays_d, generator=generator,
+                          train=True, draws=draws, autograd=True, tp=tp)
+        img_loss = img2mse(out["rgb"], batch.target_rgb)
+        loss = img_loss
+        if "rgb0" in out:
+            loss = loss + img2mse(out["rgb0"], batch.target_rgb)
     return loss, img_loss
 
 
@@ -165,11 +169,13 @@ def batch_grads(params: Params, batch: Batch, generator: torch.Generator | None,
     with f32_products():
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss, img_loss = loss_fn(tree_unflatten(params, live), spec, batch, generator, draws, tp)
-        grads = list(torch.autograd.grad(loss, live, allow_unused=True,
-                                         materialize_grads=True))
+        with profiling.annotate("mofanerf.train.backward"):
+            grads = list(torch.autograd.grad(loss, live, allow_unused=True,
+                                             materialize_grads=True))
     loss, img_loss = loss.detach(), img_loss.detach()
     if mesh is not None:
-        *grads, loss, img_loss = all_reduce_mean(grads + [loss, img_loss], mesh)
+        with profiling.annotate("mofanerf.train.backward"):
+            *grads, loss, img_loss = all_reduce_mean(grads + [loss, img_loss], mesh)
     return loss, img_loss, grads
 
 
@@ -194,24 +200,25 @@ def train_step(state: TrainState, batch: Batch, generator: torch.Generator | Non
     leaves = tree_leaves(state.params)
     tp = model_axis(mesh)
     loss, img_loss, grads = batch_grads(state.params, batch, generator, spec, draws, mesh)
-    new_p, new_mu, new_nu, count = tx.update(grads, state.opt_state, leaves)
     metrics = {"loss": loss, "psnr": mse2psnr(img_loss)}
-    if skip_nonfinite:
-        # one check over a flat copy of every gradient: a check a leaf costs a
-        # few launches a leaf (isfinite is several kernels on the card)
-        finite = torch.isfinite(torch.cat([g.reshape(-1) for g in grads])).all()
-        ok = torch.isfinite(loss) & finite
-        if tp is not None:   # the model ranks hold other blocks of the fine field
-            ok = all_true(ok, tp.group)
+    with profiling.annotate("mofanerf.train.optimizer"):
+        new_p, new_mu, new_nu, count = tx.update(grads, state.opt_state, leaves)
+        if skip_nonfinite:
+            # one check over a flat copy of every gradient: a check a leaf costs
+            # a few launches a leaf (isfinite is several kernels on the card)
+            finite = torch.isfinite(torch.cat([g.reshape(-1) for g in grads])).all()
+            ok = torch.isfinite(loss) & finite
+            if tp is not None:   # the model ranks hold other blocks of the fine field
+                ok = all_true(ok, tp.group)
 
-        def pick(new, old):
-            return [torch.where(ok, n, o) for n, o in zip(new, old)]
+            def pick(new, old):
+                return [torch.where(ok, n, o) for n, o in zip(new, old)]
 
-        new_p = pick(new_p, leaves)
-        new_mu = pick(new_mu, tree_leaves(state.opt_state.mu))
-        new_nu = pick(new_nu, tree_leaves(state.opt_state.nu))
-        count = torch.where(ok, count, state.opt_state.count)
-        metrics["step_ok"] = ok
+            new_p = pick(new_p, leaves)
+            new_mu = pick(new_mu, tree_leaves(state.opt_state.mu))
+            new_nu = pick(new_nu, tree_leaves(state.opt_state.nu))
+            count = torch.where(ok, count, state.opt_state.count)
+            metrics["step_ok"] = ok
     opt = AdamState(count, tree_unflatten(state.opt_state.mu, new_mu),
                     tree_unflatten(state.opt_state.nu, new_nu))
     return TrainState(tree_unflatten(state.params, new_p), opt, state.step + 1), metrics

@@ -1,10 +1,9 @@
 """The port's small modules against the JAX package's: `ops/uv_sample.py::
 bilinear_sample` (values and gradients to the map and the coordinates, the
 cases of tests/test_misc.py, at f32 rtol 1e-6 / atol 1e-6) and
-`utils/profiling.py` (StepTimer, a trace file written on the CPU, the
-anomaly switch)."""
+`utils/profiling.py` (a trace file written on the CPU, the anomaly switch;
+its spans and counters: tests/test_torch_tracing.py)."""
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -60,18 +59,6 @@ def test_bilinear_sample_gradients_match_jax():
     np.testing.assert_allclose(tm.grad.numpy(), np.asarray(jg_map), **TOL)
     np.testing.assert_allclose(tc.grad.numpy(), np.asarray(jg_c), rtol=1e-5, atol=1e-5)
     assert np.abs(tc.grad.numpy()).sum() > 0
-
-
-def test_step_timer():
-    t = profiling.StepTimer(warmup=2)
-    assert np.isnan(t.steps_per_sec)
-    for _ in range(2):
-        t.tick()
-    assert np.isnan(t.steps_per_sec)
-    for _ in range(3):
-        time.sleep(0.01)
-        t.tick()
-    assert 0 < t.steps_per_sec <= 100.5
 
 
 def test_trace_writes_a_file_on_the_cpu(tmp_path):
