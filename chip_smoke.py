@@ -33,11 +33,17 @@ Phases, each failing loudly:
        with contracting weights (x 0.4, atol 5e-3); f32 timed against its
        plain version in turns (CUDA events), beside the FFMA bound and the
        bound of three TF32 products a product;
+     - serve_rays, the serving path's rays and B2's per-ray operands in one
+       launch, at a 512x512 frame and a 60-frame 512x512 path, against its
+       plain version on the same inputs (rays_o bit for bit; rays_d, |d| within
+       2 f32 ulp; dirf within 1 ulp of the compute dtype; the hit count), its
+       ms a launch from torch.profiler beside its bytes bound;
      - a yardstick, not on any path: one hidden layer's product at the packet
        shapes through torch.matmul (`layer_matmul_ms`);
   4. serving path: a seeded bf16 student artifact through the run_render CLI
      (4 views at 512x512), then a 3-pose x 3-expression rig of a
-     code-conditioned student through render_path_serve; then the steady
+     code-conditioned student through render_path_serve (serve_rays launches
+     counted: one a frame, one a path); then the steady
      512x512 frame, timed and once more under torch.profiler (the card's busy
      share, the kernels and the host operations a frame);
   5. teacher path: a seeded full-width model, a seeded UV map through the
@@ -457,6 +463,123 @@ def kernel_phase(failures, dev, n_rays=N_KERNEL):
     return rows
 
 
+RAYS_BYTES_A_ROW = 2 * 3 * 4 + 4 * 4 + (W // 2) * 2   # rays_o, rays_d, aux, bf16 dirf: 168
+
+
+def _ulp(x, dtype):
+    """The spacing of `dtype` at |x| (x's binade; normal numbers), in f64."""
+    import torch
+
+    bits = {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    return torch.exp2(torch.floor(torch.log2(x.double().abs().clamp_min(2.0 ** -126))) - bits)
+
+
+def serve_rays_phase(failures, dev, side=512, frames=(1, 60)):
+    """serve_rays (csrc/serve_rays.cuh) at the serving path's shapes, a 512^2 frame and a
+    60-frame 512^2 path (the bf16 student, W/2 = 64), against its plain version
+    (`serve_rays_ref`) on the same card inputs, TF32 off: rays_o bit for bit; rays_d
+    within 2 f32 ulp of the size of the terms the pose's rotation sums, |d| within 2
+    f32 ulp; dirf within 1 ulp of the compute dtype beyond the one rounding of its f32
+    sum at the size of its terms; the hit count the mask's sum. Then ms a launch on the
+    card's timeline (torch.profiler over back-to-back calls; CUDA events where the trace
+    holds no device time), the plain version's by CUDA events, beside the bytes bound
+    (RAYS_BYTES_A_ROW a row at 3.35 TB/s)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
+    from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops import serve_rays as sr
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+    from mofanerf_tpu_torch.ops.sweep import packet_plan
+
+    cfg = StudentConfig(depth=D, width=W, multires=MR, compute_dtype=torch.bfloat16)
+    pack = sk.pack_student(init_student_params(torch.Generator().manual_seed(0), cfg,
+                                               device=dev), cfg)
+    lo, hi = torch.full((3,), -5.0, device=dev), torch.full((3,), 5.0, device=dev)
+    K = torch.tensor([[1200.0 * side / 512, 0, side / 2], [0, 1200.0 * side / 512, side / 2],
+                      [0, 0, 1]], device=dev)
+    # the pixels' camera-space directions, for the size of the terms get_rays sums
+    j, i = torch.meshgrid(torch.arange(side, dtype=torch.float64, device=dev),
+                          torch.arange(side, dtype=torch.float64, device=dev), indexing="ij")
+    cam = torch.stack([((i - side / 2) / float(K[0, 0])).abs(),
+                       ((j - side / 2) / float(K[1, 1])).abs(), torch.ones_like(i)],
+                      -1).reshape(-1, 3)
+    rows = {}
+    for n_frames in frames:
+        poses = torch.from_numpy(np.stack([pose_spherical(6.0 * f - 30.0, 10.0, 16.0)
+                                           for f in range(n_frames)]).astype(np.float32)).to(dev)
+        n = n_frames * side * side
+        n_rows = packet_plan(n, 16384, sk._BLOCK_R)[1]
+        args = (pack, cfg, side, side, K, poses, 8.0, 26.0, lo, hi, n_rows)
+        got = sr.serve_rays(*args)
+        torch.cuda.synchronize()
+        want = sr.serve_rays_ref(*args)
+        bad = {}
+        bad["rays_o"] = int((got.rays_o != want.rays_o).any(-1).sum())
+        bad["n_hit"] = int(got.n_hit.item()) != int((got.aux[:n, 2] > 0).sum())
+        gaps = {k: 0.0 for k in ("rays_d", "t0_t1", "norm_d", "dirf")}
+        bad.update(rays_d=0, t0_t1=0, hit=0, norm_d=0, dirf=0)
+        step = side * side   # a frame's rows at a time: the f64 checks of 15.7 M rows at once
+        for r0 in range(0, n_rows, step):   # would not fit beside the outputs
+            r1 = min(r0 + step, n_rows)
+            g = {k: getattr(got, k)[r0:r1] for k in ("rays_d", "aux", "dirf")}
+            w = {k: getattr(want, k)[r0:r1] for k in ("rays_d", "aux", "dirf")}
+            scale = torch.ones_like(g["rays_d"], dtype=torch.float64)   # padding rows: ones
+            if r0 < n:
+                m = min(r1, n) - r0
+                scale[:m] = cam[:m] @ poses[r0 // step, :3, :3].double().abs().T
+            gap = (g["rays_d"] - w["rays_d"]).abs().double()
+            bad["rays_d"] += int((gap > 2 * _ulp(scale, torch.float32)).sum())
+            gaps["rays_d"] = max(gaps["rays_d"], float(gap.max()))
+            differ = g["aux"][:, 2] != w["aux"][:, 2]
+            width = torch.where(g["aux"][:, 2] > 0, g["aux"][:, 1] - g["aux"][:, 0],
+                                w["aux"][:, 1] - w["aux"][:, 0])
+            bad["hit"] += int((differ & (width >= 1e-4)).sum())
+            tgap = (g["aux"][~differ, :2] - w["aux"][~differ, :2]).abs()
+            bad["t0_t1"] += int((tgap > 1e-5 * w["aux"][~differ, :2].abs()).sum())
+            gaps["t0_t1"] = max(gaps["t0_t1"], float(tgap.max()))
+            ngap = (g["aux"][:, 3] - w["aux"][:, 3]).abs().double()
+            bad["norm_d"] += int((ngap > 2 * _ulp(w["aux"][:, 3], torch.float32)).sum())
+            gaps["norm_d"] = max(gaps["norm_d"], float(ngap.max()))
+            de = fourier_embed(got.rays_d[r0:r1] / g["aux"][:, 3:], cfg.multires_views)
+            terms = de.abs() @ pack.w_dirs.abs()
+            gd, wd = g["dirf"].double(), w["dirf"].double()
+            tol = _ulp(torch.maximum(gd.abs(), wd.abs()), cfg.compute_dtype) \
+                + _ulp(terms, torch.float32)
+            bad["dirf"] += int(((gd - wd).abs() > tol).sum())
+            gaps["dirf"] = max(gaps["dirf"], float((gd - wd).abs().max()))
+        del got, want, g, w
+        key = f"{n_frames}x{side}x{side}"
+        iters = max(5, 300 // n_frames)
+        sr.serve_rays(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                sr.serve_rays(*args)
+            torch.cuda.synchronize()
+        dev_us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                     for e in prof.key_averages() if "make_rays" in e.key)
+        event_ms = cuda_ms(lambda: sr.serve_rays(*args), iters)
+        ms = dev_us / iters / 1e3 if dev_us > 0 else event_ms
+        plain_ms = cuda_ms(lambda: sr.serve_rays_ref(*args), max(2, 20 // n_frames), warmup=1)
+        nbytes = n_rows * RAYS_BYTES_A_ROW
+        bound = nbytes / PEAK_BYTES * 1e3
+        rows[key] = {"ms": ms, "timed_by": "device trace" if dev_us > 0 else "CUDA events",
+                     "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes", "bytes": nbytes, "rows": n_rows, "max_abs_err": gaps,
+                     "outside_tol": bad}
+        print(f"serve_rays {key} ({n_rows} rows): {ms:.4f} ms a launch ({rows[key]['timed_by']}; "
+              f"CUDA events over back-to-back calls {event_ms:.4f}), plain version "
+              f"{plain_ms:.3f} ms; bytes bound {bound:.4f} ms ({RAYS_BYTES_A_ROW} B a row), "
+              f"{bound / ms:.1%} of bound; max |kernel-plain| {gaps}; outside tolerance {bad}",
+              flush=True)
+        if any(bad.values()):
+            fail(failures, f"serve_rays {key} disagrees with its plain version: {bad}")
+    return rows
+
+
 def field_inputs(cfg, w_dirs, n_rays, n_samples, seed, dev):
     """Embedded sample points and per-ray view features as the renderer makes
     them: rays from (0, 0, 16) toward the head, depths evenly over [8, 26]."""
@@ -694,6 +817,7 @@ def path_phase(failures, card, dev, H=512):
     from mofanerf_tpu_torch.models.ism import init_ism_params
     from mofanerf_tpu_torch.models.student import StudentConfig, init_student_params
     from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops import serve_rays as sr
     from mofanerf_tpu_torch.ops.bounds import ray_aabb_interval
     from mofanerf_tpu_torch.ops.rays import get_rays, pose_spherical
     from mofanerf_tpu_torch.ops.sweep import bucket_fraction
@@ -746,7 +870,7 @@ def path_phase(failures, card, dev, H=512):
 
         # ---- the main path: counts zeroed just before, read just after
         torch.cuda.synchronize()
-        sk.launch_count = 0
+        sk.launch_count, sr.launch_count = 0, 0
         t0 = time.perf_counter()
         frames = run_render.main(["--out_dir", os.path.join(tmp, "orbit"),
                                   "--student_path", art, "--n_views", str(n_views),
@@ -763,7 +887,7 @@ def path_phase(failures, card, dev, H=512):
             rig.append({k: v.float().cpu().numpy() for k, v in out.items()})
         torch.cuda.synchronize()
         t_rig = time.perf_counter() - t0
-        launches = sk.launch_count
+        launches, rays_launches = sk.launch_count, sr.launch_count
         n_png = len([f for f in os.listdir(os.path.join(tmp, "orbit")) if f.endswith(".png")])
 
     print(f"path: CLI served {frames.shape[0]} frames {frames.shape[1]}x{frames.shape[2]} "
@@ -772,6 +896,12 @@ def path_phase(failures, card, dev, H=512):
           f"kernel launches {launches} (expected {expected})", flush=True)
     if launches != expected or launches == 0:
         fail(failures, f"kernel launch count {launches} != expected {expected}")
+    # serve_rays: one launch a CLI frame and one a rig path, none elsewhere
+    rays_expected = n_views + len(rig_exps)
+    print(f"path: serve_rays launches {rays_launches} (expected {rays_expected}: one a frame, "
+          f"one a path)", flush=True)
+    if rays_launches != rays_expected:
+        fail(failures, f"serve_rays launch count {rays_launches} != expected {rays_expected}")
     if frames.shape != (n_views, H, H, 3) or n_png != n_views:
         fail(failures, f"CLI output shape {frames.shape}, {n_png} PNGs")
     for name, arr in [("cli rgb", frames)] + [(f"rig {e} {k}", r[k]) for e, r in zip(rig_exps, rig)
@@ -813,7 +943,7 @@ def path_phase(failures, card, dev, H=512):
     print(f"path: rig {t_rig / (len(rig_exps) * len(rig_poses)):.5f} s per 512x512 frame "
           f"(hit budget {frac}) on {card}", flush=True)
     profile_frames(frame, reps, card)
-    return launches
+    return launches, rays_launches
 
 
 def profile_frames(frame, reps, card):
@@ -4762,13 +4892,16 @@ def main(argv) -> int:
     rows = kernel_phase(failures, dev)
     print(f"kernel phase (serving kernel): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    rays_rows = serve_rays_phase(failures, dev)
+    print(f"kernel phase (serve_rays): {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     field_rows = field_kernel_phase(failures, dev)
     print(f"kernel phase (field kernel): {time.perf_counter() - t0:.1f} s", flush=True)
     layer_matmul_phase(dev)
     if kernel_only:
         return 1 if failures else 0
     t0 = time.perf_counter()
-    launches = path_phase(failures, card, dev)
+    launches, rays_launches = path_phase(failures, card, dev)
     print(f"path phase (serving): {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     field_launches, teacher_sec = teacher_path_phase(failures, card, dev, field_rows)
@@ -5046,6 +5179,22 @@ def main(argv) -> int:
         "library_ms": None,
         "design": main_row["design"],
         "f32": rows["float32"],
+    }, {
+        # no TPU kernel: XLA fused get_rays, the slab test and the view product under jit
+        "name": "serve_rays",
+        "route": "cuda",
+        "source": "mofanerf_tpu_torch/csrc/serve_rays.cuh",
+        "replaces": None,
+        "launches": rays_launches,
+        "launches_by_path": {"serving": rays_launches},
+        "max_abs_err": rays_rows["1x512x512"]["max_abs_err"],
+        "ms": rays_rows["1x512x512"]["ms"],
+        "plain_ms": rays_rows["1x512x512"]["plain_ms"],
+        "bound_ms": rays_rows["1x512x512"]["bound_ms"],
+        "bound_by": "bytes",
+        "bytes_a_row": RAYS_BYTES_A_ROW,
+        "library_ms": None,
+        "path_60": rays_rows["60x512x512"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,9 @@
 //       (f32) or 256 (bf16) samples a ray.
 // Both take any ray count.
 //
+// The library also holds serve_rays (serve_rays.cuh), which makes the rays and the per-ray
+// operands (aux, dirf) that these kernels read, for every pose of a frame or a path at once.
+//
 // Precision contract (from the TPU kernel, pallas_serve.py:97-134): every product casts
 // both operands to the compute dtype and accumulates in f32 -- including the world-space
 // points of the input layer; bias adds and ReLU are f32 and each hidden layer's result is
@@ -36,6 +39,7 @@
 
 #include "serve_kernel_mma.cuh"
 #include "serve_kernel_wgmma.cuh"
+#include "serve_rays.cuh"
 
 namespace {
 
@@ -109,4 +113,41 @@ extern "C" int serve_items_skipped(unsigned long long* count, int reset) {
   if (e != cudaSuccess || !reset) return int(e);
   const unsigned long long zero = 0;
   return int(cudaMemcpyToSymbol(wgmma_serve::g_items_skipped, &zero, sizeof(zero)));
+}
+
+// The serving path's rays and B2's per-ray operands (serve_rays.cuh states the contract). dtype:
+// 0 = float32, 1 = bfloat16, the type of dirf; every other array is float32 (n_hit int32).
+// Zeroes n_hit, launches on `stream` and does not synchronise. Returns the cudaError_t.
+extern "C" int serve_rays(int dtype, const void* K, const void* poses, long long pose_stride,
+                          const void* lo, const void* hi, const void* w_dirs, void* rays_o,
+                          void* rays_d, void* aux, void* dirf, void* n_hit, long long n,
+                          long long n_rows, int H, int W, int multires_views, int w2, float near,
+                          float far, void* stream) {
+  const int per_chunk = dtype == 1 ? 8 : 4;  // dirf columns a 16-byte store
+  const long long hw = (long long)H * W;
+  if ((dtype != 0 && dtype != 1) || multires_views < 0 || w2 <= 0 || w2 % per_chunk != 0 ||
+      H < 0 || W < 0 || n < 0 || n_rows < n || (hw ? n % hw != 0 : n != 0))
+    return int(cudaErrorInvalidValue);
+  ray_ops::Args a;
+  a.K = static_cast<const float*>(K);
+  a.poses = static_cast<const float*>(poses);
+  a.lo = static_cast<const float*>(lo);
+  a.hi = static_cast<const float*>(hi);
+  a.w_dirs = static_cast<const float*>(w_dirs);
+  a.rays_o = static_cast<float*>(rays_o);
+  a.rays_d = static_cast<float*>(rays_d);
+  a.aux = static_cast<float*>(aux);
+  a.dirf = dirf;
+  a.n_hit = static_cast<int*>(n_hit);
+  a.pose_stride = pose_stride;
+  a.n = n;
+  a.n_rows = n_rows;
+  a.H = H;
+  a.W = W;
+  a.multires_views = multires_views;
+  a.w2 = w2;
+  a.near_ = near;
+  a.far_ = far;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? ray_ops::launch<ray_ops::bf16>(a, s) : ray_ops::launch<float>(a, s);
 }

@@ -16,12 +16,13 @@ cast back to the compute dtype; compositing is f32.
 
 The operands come in two parts. `pack_student` casts, stacks and tiles the
 weights once (a frame, a path); `ray_operands` makes a packet's per-ray
-inputs (`aux`, `dirf`). Two designs of the kernel (csrc/serve_kernel.cu picks
-one by the rule `uses_wgmma` states here): the wgmma design keeps the whole
-bf16 weight set resident in shared memory, read from one image that
-`tile_student_weights` writes, K-major in the 128-byte swizzle wgmma reads
-(`untile_student_weights` is the inverse); the mma.sync design reads the
-plain operands.
+inputs (`aux`, `dirf`), which the serving path has `ops/serve_rays.py` make
+for all of a frame's or a path's rays in one kernel. Two designs of the
+kernel (csrc/serve_kernel.cu picks one by the rule `uses_wgmma` states
+here): the wgmma design keeps the whole bf16 weight set resident in shared
+memory, read from one image that `tile_student_weights` writes, K-major in
+the 128-byte swizzle wgmma reads (`untile_student_weights` is the inverse);
+the mma.sync design reads the plain operands.
 """
 from __future__ import annotations
 
@@ -234,7 +235,7 @@ def pack_student(params: Params, cfg: StudentConfig) -> StudentPack:
         bsig=params["sigma"]["b"].to(f32).contiguous(),
         bfeat=params["feat"]["b"].to(f32).contiguous(),
         brgb=params["rgb"]["b"].to(f32).contiguous(),
-        w_dirs=params["view"]["w_dirs"], w_tiles=tiles, **w)
+        w_dirs=params["view"]["w_dirs"].to(f32).contiguous(), w_tiles=tiles, **w)
 
 
 def _as_pack(params, cfg: StudentConfig) -> StudentPack:

@@ -8,12 +8,18 @@ hit count on the host (`profiling.host_read`: the card's queued work is
 waited for) and buckets it up to a canonical fraction, so no foreground ray
 is dropped. Packets run in a Python loop, one call of
 `ray_fn` each, with the same packet shapes and padding as the JAX package.
+
+`sweep_made` sweeps rays made together with their per-ray operands and hit
+count (`ops/serve_rays.py::serve_rays`, the fused serving route): it reads the
+budget from the count and gathers rays and operands alike, with no second
+slab test and no padding of its own.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from mofanerf_tpu_torch.ops.bounds import ray_aabb_interval
@@ -31,6 +37,31 @@ def bucket_fraction(frac: float, buckets=HIT_BUDGET_BUCKETS) -> float:
     return 1.0
 
 
+def packet_plan(n: int, packet_size: int, packet_multiple: int = 1):
+    """(p, rows): the packet size a sweep of n rays takes (packet_size, or n
+    when fewer, rounded up to the multiple) and the rows it sweeps without
+    compaction, n and the padding rays after them."""
+    p = min(packet_size, n)
+    p = -(-p // packet_multiple) * packet_multiple
+    return p, n + (-n) % p
+
+
+def hit_share(n_hit: int, n: int) -> float:
+    """n_hit / n in f32, as `hit.float().mean()` takes it on the CPU (the sum
+    is exact below 2**24 rays, then one rounded division)."""
+    return float(np.float32(n_hit) / np.float32(n))
+
+
+def _kept(hit, p, hit_fraction):
+    """(sel, m): the first m rays with hits first, in their original order (a
+    stable sort, as jnp.argsort); m the budget rounded up to whole packets,
+    clamped to the ray count."""
+    n = hit.shape[0]
+    order = torch.sort((~hit).to(torch.uint8), stable=True).indices
+    m = min(int(-(-int(n * hit_fraction) // p) * p), n)
+    return order[:m], m
+
+
 def compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction):
     """Order face-hitting rays first and keep a whole-packets budget.
     Returns (ro, rd, sel, n_eval); sel is None when no compaction applied."""
@@ -42,11 +73,7 @@ def compact_rays(ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fractio
         hit_fraction = bucket_fraction(profiling.host_read(hit.float().mean()))
 
     if hit_fraction < 1.0:
-        # hits first, in their original order (a stable sort, as jnp.argsort)
-        order = torch.sort((~hit).to(torch.uint8), stable=True).indices
-        # round the budget up to whole packets, clamped to the ray count
-        m = min(int(-(-int(n * hit_fraction) // p) * p), n)
-        sel = order[:m]
+        sel, m = _kept(hit, p, hit_fraction)
         return ro_flat[sel], rd_flat[sel], sel, m
     return ro_flat, rd_flat, None, n
 
@@ -102,8 +129,7 @@ def sweep_rays(
     `mofanerf.sweep.assemble` for the stack and the scatter."""
     with profiling.annotate("mofanerf.sweep.prepare"):
         n = ro_flat.shape[0]
-        p = min(packet_size, n)
-        p = -(-p // packet_multiple) * packet_multiple
+        p, _ = packet_plan(n, packet_size, packet_multiple)
         ro_flat, rd_flat, sel, n_eval = compact_rays(
             ro_flat, rd_flat, p, aabb_min, aabb_max, near, far, hit_fraction
         )
@@ -116,13 +142,58 @@ def sweep_rays(
         extras = () if prepare is None else tuple(
             t.reshape((-1, p) + t.shape[1:])
             for t in prepare(ro.reshape(-1, 3), rd.reshape(-1, 3)))
+    return _packets(ray_fn, (ro, rd) + extras, sel, n, n_eval, white_bkgd)
+
+
+def _packets(ray_fn, packets, sel, n, n_eval, white_bkgd):
+    """One `ray_fn` call a packet (`packets`: per-ray tensors [packets, p, ...],
+    the rays first), then the maps stacked and scattered over the background."""
     outs = []
-    for i in range(ro.shape[0]):
+    for i in range(packets[0].shape[0]):
         with profiling.annotate("mofanerf.sweep.packet"):
-            outs.append(ray_fn(ro[i], rd[i], *(t[i] for t in extras)))
+            outs.append(ray_fn(*(t[i] for t in packets)))
     with profiling.annotate("mofanerf.sweep.assemble"):
         maps = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         return scatter_background(maps, sel, n, n_eval, white_bkgd)
+
+
+def sweep_made(
+    ray_fn: Callable[..., Dict[str, torch.Tensor]],
+    made,
+    packet_size: int,
+    hit_fraction: float | None = 1.0,
+    white_bkgd: bool = False,
+    packet_multiple: int = 1,
+) -> Dict[str, torch.Tensor]:
+    """`sweep_rays(prepare=...)` on rays made with their operands
+    (ops/serve_rays.py::serve_rays): `made` holds `made.n` rays and the padding
+    rows that `packet_plan` adds after them, `aux[:, 2]` their hit mask and
+    `n_hit` its count on the device. hit_fraction=None reads the count (one
+    `profiling.host_read`) and buckets `hit_share` as compact_rays buckets the
+    hit share. Under a budget below 1 the kept rays and their operands are
+    gathered alike (the padding rows with them where the budget keeps every
+    ray). Each packet gets `ray_fn(o, d, aux, dirf)`. Returns flat [n, ...] maps.
+
+    Spans as sweep_rays': `mofanerf.sweep.prepare` for the read and the
+    gather, then the packets and the assembly."""
+    with profiling.annotate("mofanerf.sweep.prepare"):
+        n = made.n
+        p, rows = packet_plan(n, packet_size, packet_multiple)
+        tensors = (made.rays_o, made.rays_d, made.aux, made.dirf)
+        if tensors[0].shape[0] != rows:
+            raise ValueError(f"{tensors[0].shape[0]} rows made for {n} rays in packets of "
+                             f"{p}, which take {rows}")
+        if hit_fraction is None:
+            hit_fraction = bucket_fraction(hit_share(profiling.host_read(made.n_hit), n))
+        sel, n_eval = None, n
+        if hit_fraction < 1.0:
+            sel, n_eval = _kept(made.aux[:n, 2] > 0, p, hit_fraction)
+            pad = (-n_eval) % p
+            rows_kept = sel if not pad else torch.cat(
+                [sel, torch.arange(n, n + pad, device=sel.device)])
+            tensors = tuple(t[rows_kept] for t in tensors)
+        packets = tuple(t.reshape((-1, p) + t.shape[1:]) for t in tensors)
+    return _packets(ray_fn, packets, sel, n, n_eval, white_bkgd)
 
 
 def sweep_frame(

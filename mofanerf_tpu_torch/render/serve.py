@@ -5,10 +5,13 @@ analytic AABB interval. With `fused=True` (the default here) every packet
 goes through the fused serving kernel (`render_packet_fused`), which launches
 on the card and runs its plain PyTorch version on the CPU; the tensors' device
 decides, with no flag. The kernel's weight operands are cast and tiled once
-a frame or path (`pack_student`) and shared by its packets, and the rays'
-operands (`ray_operands`) are made once over all of its packets. `fused=False`
-runs `render_rays_bounded`, the plain path that also serves softplus density
-and skip students.
+a frame or path (`pack_student`) and shared by its packets, and the rays of
+every pose with their operands and hit count are made by one `serve_rays`
+call (a kernel on the card, the plain chain of `get_rays` and `ray_operands`
+on the CPU) before the sweep (`sweep_made`). The mesh route makes its rays
+pose by pose and their operands after its compaction (`ray_operands`).
+`fused=False` runs `render_rays_bounded`, the plain path that also serves
+softplus density and skip students.
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ from mofanerf_tpu_torch.ops.serve_kernel import (
     ray_operands,
     render_packet_fused,
 )
-from mofanerf_tpu_torch.ops.sweep import (compact_rays, scatter_background, sweep_frame,
-                                          sweep_rays)
+from mofanerf_tpu_torch.ops.serve_rays import serve_rays
+from mofanerf_tpu_torch.ops.sweep import (compact_rays, packet_plan, scatter_background,
+                                          sweep_frame, sweep_made, sweep_rays)
 from mofanerf_tpu_torch.parallel.collectives import data_rows, gather_blocks, pad_rows, padded_len
 from mofanerf_tpu_torch.parallel.mesh import axis_size
 from mofanerf_tpu_torch.utils import profiling
@@ -116,14 +120,24 @@ def _params_device(params) -> torch.device:
     return params.w0.device if isinstance(params, StudentPack) else params["input"]["w"].device
 
 
-def _packed(params: Params, cfg, near, far, lo, hi, fused: bool):
-    """What every packet reads, made once a frame or path: (the fused kernel's
-    weight operands, a `prepare` for the sweep that makes the rays' operands
-    over all packets at once); the params and no `prepare` when not fused."""
-    if not fused:
-        return params, None
-    pack = params if isinstance(params, StudentPack) else pack_student(params, cfg)
-    return pack, lambda o, d: ray_operands(pack, cfg, o, d, near, far, lo, hi)
+def _packed(params: Params, cfg, fused: bool):
+    """What every packet reads, made once a frame or path: the fused kernel's
+    weight operands, or the params when not fused."""
+    if not fused or isinstance(params, StudentPack):
+        return params
+    return pack_student(params, cfg)
+
+
+def _sweep_made(ray_fn, pack, cfg, H, W, K, poses, near, far, lo, hi, packet_size,
+                hit_fraction, white_bkgd):
+    """The fused route: the rays of every pose `[F, 3|4, 4]`, their operands and
+    hit count made by one `serve_rays` call (the span `mofanerf.sweep.rays`),
+    padded to whole packets, then swept. Flat [F*H*W, ...] maps."""
+    _, rows = packet_plan(poses.shape[0] * H * W, packet_size, _BLOCK_R)
+    with profiling.annotate("mofanerf.sweep.rays"):
+        made = serve_rays(pack, cfg, H, W, K.contiguous(), poses.contiguous(), near, far, lo,
+                          hi, rows)
+    return sweep_made(ray_fn, made, packet_size, hit_fraction, white_bkgd, _BLOCK_R)
 
 
 def render_frame_serve(
@@ -165,13 +179,14 @@ def render_frame_serve(
             dev = _params_device(params)
             lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
             K, c2w = to_device(K, dev), to_device(c2w, dev)
-            packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
-        return sweep_frame(
-            lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops), H, W, K, c2w, packet_size,
-            aabb_min=lo, aabb_max=hi, near=near, far=far,
-            hit_fraction=hit_fraction, white_bkgd=white_bkgd,
-            packet_multiple=_fused_block_multiple(fused), prepare=prepare,
-        )
+            packed = _packed(params, cfg, fused)
+        ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
+        if fused:
+            out = _sweep_made(ray_fn, packed, cfg, H, W, K, c2w[None], near, far, lo, hi,
+                              packet_size, hit_fraction, white_bkgd)
+            return {k: v.reshape((H, W) + v.shape[1:]) for k, v in out.items()}
+        return sweep_frame(ray_fn, H, W, K, c2w, packet_size, aabb_min=lo, aabb_max=hi,
+                           near=near, far=far, hit_fraction=hit_fraction, white_bkgd=white_bkgd)
 
 
 def render_path_serve(
@@ -214,9 +229,15 @@ def render_path_serve(
             lo, hi = to_device(aabb_min, dev), to_device(aabb_max, dev)
             K, poses = to_device(K, dev), to_device(poses, dev)
             pf = _packet_fn(cfg, near, far, n_samples, white_bkgd, fused, sigma_activation)
-            packed, prepare = _packed(params, cfg, near, far, lo, hi, fused)
+            packed = _packed(params, cfg, fused)
 
         F = poses.shape[0]
+        ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
+        if fused and mesh is None:
+            out = _sweep_made(ray_fn, packed, cfg, H, W, K, poses, near, far, lo, hi,
+                              packet_size, hit_fraction, white_bkgd)
+            return {k: v.reshape((F, H, W) + v.shape[1:]) for k, v in out.items()}
+
         with profiling.annotate("mofanerf.sweep.rays"):
             ro, rd = [], []
             for i in range(F):
@@ -226,7 +247,8 @@ def render_path_serve(
             ro = torch.cat(ro)
             rd = torch.cat(rd)
 
-        ray_fn = lambda o, d, *ops: pf(packed, cond, lo, hi, o, d, *ops)  # noqa: E731
+        prepare = (lambda o, d: ray_operands(packed, cfg, o, d, near, far, lo, hi)) if fused \
+            else None
         kw = dict(aabb_min=lo, aabb_max=hi, near=near, far=far, hit_fraction=hit_fraction,
                   white_bkgd=white_bkgd, packet_multiple=_fused_block_multiple(fused),
                   prepare=prepare)

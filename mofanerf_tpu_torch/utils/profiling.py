@@ -20,6 +20,9 @@ environment variable turns it on. `trace(log_dir)` records, and so does
   read is the span `mofanerf.host_read` and adds one to
   `counters["host_reads"]`. Under `torch.cuda.set_sync_debug_mode` it lifts
   the mode for its own read, so the mode finds every other wait.
+- `count(name, n)`: adds n to `counters[name]` while tracing is on
+  (`ops/serve_rays.py` counts, at each launch, the frames whose rays its
+  kernel makes).
 - `reset()`: empties `span_totals` and `counters`. They are kept in memory,
   for the life of the process, and never written out by the program.
 - `enable_nan_checks()`: `torch.autograd.set_detect_anomaly`. JAX's
@@ -125,9 +128,15 @@ def host_read(t: torch.Tensor):
     if not torch._C._autograd._profiler_enabled():
         return _item(t)
     with _Span("mofanerf.host_read"):
-        with _LOCK:
-            counters["host_reads"] = counters.get("host_reads", 0) + 1
+        count("host_reads")
         return _item(t)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to `counters[name]` while a torch.profiler records."""
+    if torch._C._autograd._profiler_enabled():
+        with _LOCK:
+            counters[name] = counters.get(name, 0) + n
 
 
 def enable_nan_checks(enable: bool = True) -> None:

@@ -281,6 +281,27 @@ def test_render_frame_fast_matches_jax(hit_fraction, model):
     assert (acc == 0).any() and acc.max() > 0.1   # background and the culled head both in view
 
 
+def test_render_frame_fast_never_reaches_serve_rays(monkeypatch, model):
+    """The occupancy renderer keeps its own rays and compaction (sweep_frame):
+    serve_rays, set to raise, is never called."""
+    from mofanerf_tpu_torch.ops import serve_rays
+    from mofanerf_tpu_torch.render import serve
+
+    def refuse(*args, **kw):
+        raise AssertionError("the occupancy renderer reached serve_rays")
+
+    monkeypatch.setattr(serve_rays, "serve_rays", refuse)
+    monkeypatch.setattr(serve, "serve_rays", refuse)
+    occ = np.zeros((8, 8, 8), bool)
+    occ[2:6, 2:6, 3:6] = True
+    _, tg = _grids(occ, [-2.0] * 3, [2.0] * 3)
+    K = np.array([[12.0, 0, 8.0], [0, 12.0, 8.0], [0, 0, 1]], np.float32)
+    got = to.render_frame_fast(model["tp"], model["tspec"], model["tc"].fine, tg, 16, 16, K,
+                               pose_spherical(20.0, -10.0, 16.0)[:3].astype(np.float32),
+                               s_probe=16, k_keep=8, hit_fraction=None)
+    assert got["rgb"].shape == (16, 16, 3) and (got["acc"] > 0.1).any()
+
+
 # ------------------------------------------------------------------ the loop
 
 

@@ -11,7 +11,7 @@ import torch
 from mofanerf_tpu_torch import bridge
 from mofanerf_tpu_torch.models import student
 from mofanerf_tpu_torch.ops import serve_kernel as sk
-from mofanerf_tpu_torch.utils import cuda_build, serve_variants
+from mofanerf_tpu_torch.utils import cuda_build, profiling, serve_variants
 
 
 def _jax():
@@ -594,3 +594,175 @@ def test_sweep_hands_each_packet_its_own_prepared_rows():
                        aabb_min=torch.tensor(AABB[0]), aabb_max=torch.tensor(AABB[1]),
                        near=NEAR, far=FAR, hit_fraction=0.5, packet_multiple=64)
     assert torch.equal(out["rgb"], plain["rgb"])
+
+
+# ---- serve_rays: the rays and the operands of every pose in one kernel
+
+
+def pose_stack(angles, radius=16.0):
+    """[F, 4, 4] f32 poses on the orbit at `radius`, one an (azimuth, elevation)."""
+    from mofanerf_tpu_torch.ops.rays import pose_spherical
+
+    return np.stack([pose_spherical(a, e, radius) for a, e in angles]).astype(np.float32)
+
+
+def todays_route(pack, cfg, H, W, K, poses, packet_size, hit_fraction, n_samples=8, box=AABB,
+                 white_bkgd=False):
+    """The fused serving route as it ran before serve_rays: get_rays pose by pose,
+    then sweep_rays, which compacts by its own slab test and makes the operands
+    (`ray_operands`) after the compaction and the padding. [F, H, W, ...] maps."""
+    from mofanerf_tpu_torch.ops.rays import get_rays
+    from mofanerf_tpu_torch.ops.sweep import sweep_rays
+
+    dev = pack.w_dirs.device
+    K, poses = (torch.as_tensor(a, dtype=torch.float32).to(dev) for a in (K, poses))
+    lo, hi = (torch.tensor(b, dtype=torch.float32, device=dev) for b in box)
+    rays = [get_rays(H, W, K, p[:3]) for p in poses]
+    out = sweep_rays(
+        lambda o, d, aux, dirf: sk.render_packet_fused(pack, cfg, o, d, aux, dirf, n_samples,
+                                                       white_bkgd),
+        torch.cat([o.reshape(-1, 3) for o, _ in rays]),
+        torch.cat([d.reshape(-1, 3) for _, d in rays]), packet_size, aabb_min=lo, aabb_max=hi,
+        near=NEAR, far=FAR, hit_fraction=hit_fraction, white_bkgd=white_bkgd,
+        packet_multiple=sk._BLOCK_R,
+        prepare=lambda o, d: sk.ray_operands(pack, cfg, o, d, NEAR, FAR, lo, hi))
+    return {k: v.reshape((len(poses), H, W) + v.shape[1:]) for k, v in out.items()}
+
+
+def _ulp(x, dtype=torch.float32):
+    """The spacing of `dtype` at |x| (x's binade; normal numbers), in f64."""
+    bits = {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    x = x.double().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(x)) - bits)
+
+
+def _rotation_scale(H, W, K, poses, rows):
+    """[rows, 3]: sum over c of |dirs_c * R[r, c]|, the size of the terms that
+    get_rays sums into each direction's component r (1 on the padding rows)."""
+    K, R = K.double(), poses[:, :3, :3].double().abs()
+    j, i = torch.meshgrid(torch.arange(H, dtype=torch.float64, device=K.device),
+                          torch.arange(W, dtype=torch.float64, device=K.device), indexing="ij")
+    dirs = torch.stack([((i - K[0, 2]) / K[0, 0]).abs(), ((j - K[1, 2]) / K[1, 1]).abs(),
+                        torch.ones_like(i)], -1).reshape(-1, 3)
+    scale = torch.einsum("nc,frc->fnr", dirs, R).reshape(-1, 3)
+    return torch.cat([scale, scale.new_ones((rows - scale.shape[0], 3))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,H,W,angles,focal,half,pad", [
+    ("viewer", "bfloat16", 512, 512, [(30.0, 10.0)], 1200.0, 5.0, 0),    # the viewer's frame
+    ("viewer", "float32", 512, 512, [(-60.0, -25.0)], 1200.0, 5.0, 0),
+    ("path", "bfloat16", 64, 64, [(-20.0, 5.0), (0.0, 5.0), (20.0, 5.0)], 150.0, 5.0, 0),
+    ("misses", "bfloat16", 64, 64, [(15.0, -5.0)], 150.0, 2.0, 0),       # part misses the box
+    ("misses", "float32", 64, 64, [(15.0, -5.0), (80.0, 30.0)], 150.0, 2.0, 0),
+    ("misses", "bfloat16", 37, 29, [(10.0, 0.0), (45.0, -30.0)], 60.0, 2.0, 202),  # 2146 rays,
+])                                                   # not a multiple of the block, padding after
+def test_cuda_serve_rays_matches_plain_version(case, dtype, H, W, angles, focal, half, pad):
+    """On the card, TF32 off: the kernel against its plain version. The rays:
+    origins bit for bit, directions within 2 f32 ulp of the size of the terms
+    the pose's rotation sums (cuBLAS sums them in its own order); t0 / t1 within
+    1e-5 relative; hit identical but on grazing rays (t1 - t0 < 1e-4); the hit
+    count the mask's sum. Then each operand against the plain version's
+    arithmetic on the kernel's own inputs to it, so that the last bits of one
+    step do not feed the next: |d| (ray_operands' norm of the kernel's rays)
+    within 2 f32 ulp; dirf (fourier_embed of the kernel's d / |d|, times w_dirs,
+    cast) within 1 ulp of the compute dtype beyond the one rounding of its f32
+    sum at the size of its terms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from mofanerf_tpu_torch.ops import serve_rays as sr
+    from mofanerf_tpu_torch.ops.embed import fourier_embed
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = student.StudentConfig(depth=4, width=128, multires=10,
+                                compute_dtype=getattr(torch, dtype))
+    pack = sk.pack_student(student.init_student_params(torch.Generator().manual_seed(7), cfg,
+                                                       device=dev), cfg)
+    K = torch.tensor([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]], device=dev)
+    poses = torch.from_numpy(pose_stack(angles)).to(dev)
+    lo, hi = torch.full((3,), -half, device=dev), torch.full((3,), half, device=dev)
+    n = len(angles) * H * W
+    rows = n + pad
+    before = sr.launch_count
+    got = sr.serve_rays(pack, cfg, H, W, K, poses, NEAR, FAR, lo, hi, rows)
+    torch.cuda.synchronize()
+    assert sr.launch_count == before + 1
+    want = sr.serve_rays_ref(pack, cfg, H, W, K, poses, NEAR, FAR, lo, hi, rows)
+    assert got.n == want.n == n and got.dirf.dtype == cfg.compute_dtype
+    assert got.aux.shape == (rows, 4) and got.dirf.shape == (rows, 64)
+
+    assert torch.equal(got.rays_o, want.rays_o)
+    gap = (got.rays_d - want.rays_d).abs().double()
+    assert (gap <= 2 * _ulp(_rotation_scale(H, W, K, poses, rows))).all(), float(gap.max())
+    differ = got.aux[:, 2] != want.aux[:, 2]   # only grazing rays: the hit side's t1 - t0 < 1e-4
+    width = torch.where(got.aux[:, 2] > 0, got.aux[:, 1] - got.aux[:, 0],
+                        want.aux[:, 1] - want.aux[:, 0])
+    assert (width[differ] < 1e-4).all()
+    torch.testing.assert_close(got.aux[~differ, :2], want.aux[~differ, :2], rtol=1e-5, atol=0)
+    hit = got.aux[:n, 2] > 0
+    assert int(got.n_hit.item()) == int(hit.sum())
+    assert bool(hit.all()) == (case != "misses") and bool(hit.any())
+
+    aux, _ = sk.ray_operands(pack, cfg, got.rays_o, got.rays_d, NEAR, FAR, lo, hi)
+    assert ((got.aux[:, 3] - aux[:, 3]).abs().double() <= 2 * _ulp(aux[:, 3])).all()
+    de = fourier_embed(got.rays_d / got.aux[:, 3:], cfg.multires_views)
+    terms = de.abs() @ pack.w_dirs.abs()
+    g, w = got.dirf.double(), (de @ pack.w_dirs).to(cfg.compute_dtype).double()
+    tol = _ulp(torch.maximum(g.abs(), w.abs()), cfg.compute_dtype) + _ulp(terms)
+    assert ((g - w).abs() <= tol).all(), float(((g - w).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,H,angles,half,hit_fraction", [
+    ("frame", 512, [(30.0, 10.0)], 5.0, None),           # the viewer's cell: every ray hits
+    ("frame", 128, [(15.0, -5.0)], 2.0, None),           # compaction to a budget below 1
+    ("path", 128, [(-20.0, 5.0), (0.0, 5.0), (20.0, 5.0)], 5.0, None),
+    ("path", 96, [(-40.0, 20.0), (35.0, -10.0)], 2.0, 0.5),
+])
+def test_cuda_served_frames_and_paths_match_todays_route(what, H, angles, half, hit_fraction):
+    """On the card: render_frame_serve and render_path_serve, whose rays and
+    operands serve_rays makes, against the route that made them in small
+    operations (`todays_route`), within the student.viewer cell's limits (rgb
+    0.006 max, 0.0015 rms); one serve_rays launch a call, counted under tracing
+    as the frames it made, and as many B2 launches as that route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from mofanerf_tpu_torch.ops import serve_rays as sr
+    from mofanerf_tpu_torch.render import serve
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = student.StudentConfig(depth=4, width=128, multires=10, compute_dtype=torch.bfloat16)
+    params = student.init_student_params(torch.Generator().manual_seed(9), cfg, device=dev)
+    params["sigma"]["b"] = params["sigma"]["b"] + 1.5
+    pack = sk.pack_student(params, cfg)
+    focal = 1200.0 * H / 512
+    K = np.array([[focal, 0, H / 2], [0, focal, H / 2], [0, 0, 1]], np.float32)
+    poses = pose_stack(angles)
+    box = ((-half,) * 3, (half,) * 3)
+    kw = dict(near=NEAR, far=FAR, n_samples=32, aabb_min=box[0], aabb_max=box[1],
+              packet_size=16384, hit_fraction=hit_fraction)
+    rays0, b2_0 = sr.launch_count, sk.launch_count
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        if what == "frame":
+            got = {k: v[None] for k, v in serve.render_frame_serve(pack, cfg, None, H, H, K,
+                                                                   poses[0][:3], **kw).items()}
+        else:
+            got = serve.render_path_serve(pack, cfg, None, poses, H, H, K, **kw)
+        torch.cuda.synchronize()
+    counted = dict(profiling.counters)
+    profiling.reset()
+    rays1, b2_1 = sr.launch_count, sk.launch_count
+    want = todays_route(pack, cfg, H, H, K, poses, 16384, hit_fraction, n_samples=32, box=box)
+    torch.cuda.synchronize()
+    assert rays1 == rays0 + 1 and sr.launch_count == rays1
+    assert counted["serve_rays_frames"] == len(angles)   # traced: 1 a frame, F a path
+    assert b2_1 - b2_0 == sk.launch_count - b2_1 >= 1
+    assert got["rgb"].shape == want["rgb"].shape == (len(angles), H, H, 3)
+    gap = (got["rgb"] - want["rgb"]).abs()
+    assert float(gap.max()) <= 0.006 and float(gap.pow(2).mean().sqrt()) <= 0.0015
+    assert (got["acc"] > 0.5).any()
+    if half < 5.0:
+        assert (got["acc"] == 0).any()
