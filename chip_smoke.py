@@ -40,6 +40,15 @@ Phases, each failing loudly:
        ms a launch from torch.profiler beside its bytes bound;
      - a yardstick, not on any path: one hidden layer's product at the packet
        shapes through torch.matmul (`layer_matmul_ms`);
+     - the train step's kernels at `mofanerf.train`'s shapes: the fused field
+       layer (ops/fused_linear.py) at 65,536 x 256 and 131,072 x 1024, the
+       skip layer's two products and the embedding's 63-wide input, its
+       output and every gradient against an f32 reference (two bf16 ulps of
+       the largest value; the bias gradient 1e-4), `relu_grad` timed beside
+       its bytes bound, the layer beside `_layer` + ReLU; the flat Adam's
+       `adam` and `finite` (ops/flat_adam.py) at 25 M elements bit for bit
+       against their plain versions (an infinite gradient, a NaN loss), timed
+       beside their bytes bounds;
   4. serving path: a seeded bf16 student artifact through the run_render CLI
      (4 views at 512x512), then a 3-pose x 3-expression rig of a
      code-conditioned student through render_path_serve (serve_rays launches
@@ -63,10 +72,12 @@ Phases, each failing loudly:
      configs/exp_mofanerf.txt keeping its occupancy grid (updated every 4
      steps), with a checkpoint mid-run, a resumed run (the grid resumed too),
      and run_render from the last checkpoint (its held-out image, orbit and
-     CLI views go through the field kernel); one small f32 step on the card
-     against the CPU; the full-width step timed (median after two warm-ups,
-     synchronised around each step), its peak memory and operations bound, and
-     three steps under torch.profiler (busy share, the texture encoder's share).
+     CLI views go through the field kernel; the train step's kernels counted:
+     44 relu_grad, 1 adam and 1 finite a step); one small f32 step on the card
+     against the CPU; the full-width step (its state copied once into flat
+     buffers, as the loops do) timed (median after two warm-ups, synchronised
+     around each step), its peak memory and operations bound, and three steps
+     under torch.profiler (busy share, the texture encoder's share).
   7. distillation path, on the training phase's checkpoint directory: the
      run_render CLI distils a student at the defaults (2000 steps of 32768
      points; the teacher's queries through the field kernel, one launch a
@@ -801,6 +812,169 @@ def layer_matmul_phase(dev):
               f"{ms:.4f} ms, {tflops:.1f} TFLOP/s", flush=True)
     print(json.dumps({"layer_matmul_ms": out}), flush=True)
     return out
+
+
+# the train step's fused field layers at mofanerf.train's shapes (1024 rays x 64 coarse / 128
+# fine samples): (name, rows, fan-in, fan-in of the skip layer's second product or 0, width);
+# a 63-wide input is the embedded points (f32, no gradient)
+TRAIN_LAYERS = (("coarse", 65536, 256, 0, 256), ("coarse_skip", 65536, 256, 256, 256),
+                ("fine", 131072, 1024, 0, 1024), ("fine_skip", 131072, 1024, 1024, 1024),
+                ("fine_pts", 131072, 63, 0, 1024))
+TRAIN_ADAM_ELEMENTS = 25_000_000   # about the teacher's parameters
+
+
+def _rel_gap(a, ref):
+    """Largest |a - ref| over the largest |ref|."""
+    return float((a.detach().float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def train_kernels_phase(failures, dev):
+    """The train step's kernels on the card, TF32 off, as tests/test_torch_flat_train.py
+    holds them: the fused field layer (ops/fused_linear.py: cuBLASLt's bias-and-ReLU
+    epilogue forward; the Triton `relu_grad` and cuBLAS's products backward) at
+    TRAIN_LAYERS, its output and every gradient against an f32 reference of the same bf16
+    operands (the mask from the layer's own output) within two bf16 ulps of the largest
+    reference value (the f32 bias gradient within 1e-4), `_layer` + ReLU's gaps printed
+    beside; the flat Adam's `finite` and `adam` (ops/flat_adam.py) at TRAIN_ADAM_ELEMENTS bit
+    for bit against their plain versions, with every gradient finite, one infinite and the
+    loss NaN (state and count kept). Then CUDA-event times: `relu_grad` beside its bytes
+    bound (three activations) and `threshold_backward` + `sum(0)`; a layer's forward, and
+    its forward and backward, beside `_layer` + ReLU's and the products' bound; `adam` and
+    `finite` beside their bytes bounds (7 and 1 f32 an element). Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from mofanerf_tpu_torch.models import field as tfield
+    from mofanerf_tpu_torch.ops import flat_adam, fused_linear as fl
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {"layers": {}}
+    for name, M, K, K2, N in TRAIN_LAYERS:
+        pts = K == 63
+        x = (torch.rand((M, K), generator=gen, device=dev) * 2).to(torch.float32 if pts else bf16)
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        b = torch.randn((N,), generator=gen, device=dev) * 0.1
+        x2 = (torch.rand((M, K2), generator=gen, device=dev) * 2).to(bf16) if K2 else None
+        w2 = torch.randn((K2, N), generator=gen, device=dev) / max(K2, 1) ** 0.5 if K2 else None
+        dy = (torch.randn((M, N), generator=gen, device=dev) * 1e-3).to(bf16)
+        x.requires_grad_(not pts)
+        for t in (w, b, x2, w2):
+            if t is not None:
+                t.requires_grad_()
+        pairs = [(x, w)] + ([(x2, w2)] if K2 else [])
+        layer_pairs = [(x.to(bf16), w)] + pairs[1:]
+        ins = [t for t in (x, w, b, x2, w2) if t is not None and t.requires_grad]
+        names = ([] if pts else ["dx"]) + ["dw", "db"] + (["dx2", "dw2"] if K2 else [])
+        y = fl.linear_relu(pairs, b)
+        got = dict(zip(names, torch.autograd.grad(y, ins, dy)), y=y)
+        layer_y = F.relu(tfield._layer(layer_pairs, b, bf16))
+        layer = dict(zip(names, torch.autograd.grad(layer_y, ins, dy)), y=layer_y)
+        with torch.no_grad():
+            xf, wb = x.detach().to(bf16).float(), w.detach().to(bf16).float()
+            yref = xf @ wb + b.detach()
+            if K2:
+                x2f, w2b = x2.detach().float(), w2.detach().to(bf16).float()
+                yref += x2f @ w2b
+            dz = dy.float() * (y > 0)
+            ref = {"y": F.relu(yref), "dw": xf.t() @ dz, "db": dz.sum(0)}
+            if not pts:
+                ref["dx"] = dz @ wb.t()
+            if K2:
+                ref["dx2"], ref["dw2"] = dz @ w2b.t(), x2f.t() @ dz
+        gaps = {k: (_rel_gap(got[k], r), _rel_gap(layer[k], r),
+                    1e-4 if k == "db" else 2 * 2.0 ** -8) for k, r in ref.items()}
+        bad = {k: v for k, v in gaps.items() if not v[0] <= v[2]}
+        del got, layer, ref, yref, dz, layer_y
+        # times: the backward's pass alone, then the layer against _layer + ReLU
+        yd = y.detach()
+        ops = 2 * M * N * (K + K2)
+        grad_ms = cuda_ms(lambda: fl.relu_grad(dy, yd, True), iters=10)
+        grad_plain_ms = cuda_ms(lambda: torch.ops.aten.threshold_backward(dy, yd, 0).sum(0),
+                                iters=10)
+        grad_bound = 3 * M * N * 2 / PEAK_BYTES * 1e3
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fl.linear_relu(pairs, b), iters=10)
+            fwd_layer_ms = cuda_ms(lambda: F.relu(tfield._layer(layer_pairs, b, bf16)),
+                                   iters=10)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(fl.linear_relu(pairs, b), ins, dy),
+                          iters=10)
+        both_layer_ms = cuda_ms(lambda: torch.autograd.grad(
+            F.relu(tfield._layer(layer_pairs, b, bf16)), ins, dy), iters=10)
+        del y, yd
+        rows["layers"][name] = {
+            "rows": M, "fan_in": K, "fan_in_2": K2, "width": N,
+            "max_rel_err": {k: v[0] for k, v in gaps.items()},
+            "layer_route_rel_err": {k: v[1] for k, v in gaps.items()},
+            "relu_grad_ms": grad_ms, "relu_grad_bound_ms": grad_bound,
+            "relu_grad_plain_ms": grad_plain_ms, "forward_ms": fwd_ms,
+            "forward_layer_route_ms": fwd_layer_ms, "forward_bound_ms": ops / PEAK_BF16 * 1e3,
+            "fwd_bwd_ms": both_ms, "fwd_bwd_layer_route_ms": both_layer_ms,
+            "fwd_bwd_bound_ms": 3 * ops / PEAK_BF16 * 1e3}
+        print(f"train kernels {name} [{M} x {K}{f' + {K2}' if K2 else ''}] -> {N}: max rel gap "
+              f"{ {k: f'{v[0]:.2e}' for k, v in gaps.items()} } (_layer + ReLU "
+              f"{ {k: f'{v[1]:.2e}' for k, v in gaps.items()} }); relu_grad {grad_ms:.4f} ms "
+              f"(bytes bound {grad_bound:.4f}, {grad_bound / grad_ms:.1%}; threshold_backward + "
+              f"sum {grad_plain_ms:.4f}); forward {fwd_ms:.4f} ms (_layer + ReLU "
+              f"{fwd_layer_ms:.4f}, products' bound {ops / PEAK_BF16 * 1e3:.4f}); forward and "
+              f"backward {both_ms:.4f} ms (_layer + ReLU {both_layer_ms:.4f}, bound "
+              f"{3 * ops / PEAK_BF16 * 1e3:.4f})", flush=True)
+        if bad:
+            fail(failures, f"fused layer {name}: outside tolerance (gap, _layer gap, tol) {bad}")
+        torch.cuda.empty_cache()
+
+    n = TRAIN_ADAM_ELEMENTS // flat_adam.ALIGN * flat_adam.ALIGN
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p, mu, g = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    nu = torch.rand(n, generator=gen, device=dev) * 1e-3
+    count = torch.full((), 7, dtype=torch.int32, device=dev)
+    t = (count + 1).float()
+    consts = (-torch.full((), 5e-5, device=dev), 1 - 0.9 ** t, 1 - 0.999 ** t)
+    adam_bad = []
+    for bad in (None, "g", "loss"):
+        gg, loss = g.clone(), torch.ones((), device=dev)
+        if bad == "g":
+            gg[n // 3] = float("inf")
+        if bad == "loss":
+            loss.fill_(float("nan"))
+        outs = []
+        for finite, adam in ((flat_adam.all_finite, flat_adam.adam_),
+                             (flat_adam.all_finite_ref, flat_adam.adam_ref_)):
+            bufs, c = [x.clone() for x in (p, mu, nu)], count.clone()
+            flag = torch.ones((), dtype=torch.int32, device=dev)
+            finite(gg, loss, flag)
+            adam(*bufs, gg, c, *consts, flag, 0.9, 0.999, 1e-8)
+            outs.append((bufs, int(c), int(flag)))
+        (kb, kc, kf), (pb, pc, pf) = outs
+        same = all(torch.equal(a, r) for a, r in zip(kb, pb))
+        kept = bad is None or all(torch.equal(a, x) for a, x in zip(kb, (p, mu, nu)))
+        if not (same and kept and (kc, kf) == (pc, pf) == ((8, 1) if bad is None else (7, 0))):
+            adam_bad.append({"nonfinite": bad, "bits_equal": same, "kept": kept,
+                             "count": (kc, pc), "flag": (kf, pf)})
+        del outs, kb, pb, gg
+    flag = torch.ones((), dtype=torch.int32, device=dev)
+    loss = torch.ones((), device=dev)
+    adam_ms = cuda_ms(lambda: flat_adam.adam_(p, mu, nu, g, count, *consts, flag, 0.9, 0.999,
+                                              1e-8), iters=10)
+    finite_ms = cuda_ms(lambda: flat_adam.all_finite(g, loss, flag), iters=10)
+    adam_plain_ms = cuda_ms(lambda: flat_adam.adam_ref_(p, mu, nu, g, count, *consts, flag, 0.9,
+                                                        0.999, 1e-8), iters=3, warmup=1)
+    finite_plain_ms = cuda_ms(lambda: flat_adam.all_finite_ref(g, loss, flag), iters=3,
+                              warmup=1)
+    rows["adam"] = {"elements": n, "adam_ms": adam_ms, "adam_bound_ms": 28 * n / PEAK_BYTES * 1e3,
+                    "adam_plain_ms": adam_plain_ms, "finite_ms": finite_ms,
+                    "finite_bound_ms": 4 * n / PEAK_BYTES * 1e3, "finite_plain_ms": finite_plain_ms,
+                    "max_abs_err": 0.0 if not adam_bad else None}
+    print(f"train kernels flat Adam ({n} elements): bit for bit against the plain version "
+          f"(finite, an infinite gradient, a NaN loss): {not adam_bad}; adam {adam_ms:.4f} ms "
+          f"(bytes bound {rows['adam']['adam_bound_ms']:.4f}; plain {adam_plain_ms:.4f}), "
+          f"finite {finite_ms:.4f} ms (bytes bound {rows['adam']['finite_bound_ms']:.4f}; plain "
+          f"{finite_plain_ms:.4f})", flush=True)
+    if adam_bad:
+        fail(failures, f"flat Adam differs from its plain version: {adam_bad}")
+    del p, mu, nu, g
+    torch.cuda.empty_cache()
+    return rows
 
 
 def n_packets(n_rays, packet_size, n_eval=None):
@@ -1747,6 +1921,7 @@ def train_phase(failures, card, dev, tmp):
     from mofanerf_tpu_torch.data.landmarks import TrainRaySampler
     from mofanerf_tpu_torch.models.field import FieldConfig
     from mofanerf_tpu_torch.ops import field_kernel as fk
+    from mofanerf_tpu_torch.ops import flat_adam, fused_linear as fl
     from mofanerf_tpu_torch.ops.embed import fourier_embed
     from mofanerf_tpu_torch.ops.composite import sigma_act
     from mofanerf_tpu_torch.ops.occupancy import (OccupancyGrid, dilate_occupancy, load_grid,
@@ -1847,6 +2022,8 @@ def train_phase(failures, card, dev, tmp):
     # ---- the main path: counts zeroed just before, read just after
     torch.cuda.synchronize()
     fk.launch_count = 0
+    fl.launch_count.clear()
+    flat_adam.launch_count.clear()
     t0 = time.perf_counter()
     run_train.main(flags + ["--n_iters", str(n_first)])
     t_first = time.perf_counter() - t0
@@ -1860,6 +2037,15 @@ def train_phase(failures, card, dev, tmp):
     torch.cuda.synchronize()
     t_render = time.perf_counter() - t0
     launches = fk.launch_count
+    train_kernels = {"relu_grad": fl.launch_count["relu_grad"],
+                     "adam": flat_adam.launch_count["adam"],
+                     "finite": flat_adam.launch_count["finite"]}
+    # every hidden layer of both fields is one fused layer, whose backward is one relu_grad
+    # (the embedding's layer, the xyz layers, each trunk's first, mid, skip and post
+    # layers); one adam and one finite a step
+    per_step = sum(1 + f.xyz_depth + 2 * (2 + f.skip + max(0, f.depth - f.skip - 2))
+                   for f in (spec.coarse, spec.fine))
+    want_kernels = {"relu_grad": n_total * per_step, "adam": n_total, "finite": n_total}
 
     exp = os.path.join(logs, "smoke")
     log = open(os.path.join(exp, "train_log.txt")).read()
@@ -1890,8 +2076,14 @@ def train_phase(failures, card, dev, tmp):
           f"40-view orbit, the 2 CLI views)", flush=True)
     print(f"train: losses {[round(v, 5) for v in losses]}, step_ok {oks}; checkpoints {ckpts}; "
           f"{len(tests)} held-out PNG, {len(orbit)} orbit PNGs", flush=True)
+    print(f"train: the train step's kernels over the {n_total} steps: {train_kernels} "
+          f"(expected {want_kernels}: {per_step} relu_grad, 1 adam, 1 finite a step)",
+          flush=True)
     if launches != expected or launches == 0:
         fail(failures, f"training path: field kernel launches {launches} != expected {expected}")
+    if train_kernels != want_kernels:
+        fail(failures, f"training path: train step kernel launches {train_kernels} != "
+                       f"expected {want_kernels}")
     if len(losses) != n_total or not all(np.isfinite(losses)) or not all(o == 1 for o in oks):
         fail(failures, f"training: {len(losses)} logged steps, losses {losses}, step_ok {oks}")
     if not all(f"resumed from checkpoint at step {n}" in log for n in (0, n_first)):
@@ -1978,7 +2170,7 @@ def train_phase(failures, card, dev, tmp):
     print(f"train: host batch assembly (PNG read, sampling, rays, copies) "
           f"{t_batch * 1e3:.1f} ms a batch, outside the timed steps", flush=True)
     render_flags = flags[:flags.index("--i_print")]
-    return launches, final, cfg, batches, render_flags
+    return launches, final, cfg, batches, render_flags, train_kernels
 
 
 class _Tee:
@@ -4327,14 +4519,15 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
     spec = cfg.model_spec()
     n_warm, n_timed, n_prof = 2, TIMED_STEPS, PROFILED_STEPS
     tx = st.make_optimizer(cfg.lrate, cfg.lrate_decay)
-    state = final
+    # the state copied once into flat buffers and stepped in place, as the training loops do
+    flat = st.FlatTrainState(final)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     for i, batch in enumerate(batches[:n_warm + n_timed]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = st.train_step(state, batch, loop.step_generator(0, i, dev), spec, tx)
+        metrics = flat.step_(batch, loop.step_generator(0, i, dev), spec, tx)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if not bool(metrics["step_ok"]):
@@ -4358,8 +4551,7 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
           f"is {bound_ms / ms:.1%} of its bound", flush=True)
 
     def one_step():
-        nonlocal state
-        state, _ = st.train_step(state, batches[-1], loop.step_generator(0, 99, dev), spec, tx)
+        flat.step_(batches[-1], loop.step_generator(0, 99, dev), spec, tx)
 
     syncs = host_syncs(one_step)
     print(f"train step: host synchronisations in 3 + 3 steps (a reading, not a check; "
@@ -4369,7 +4561,7 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i, batch in enumerate(batches[n_warm + n_timed:]):
-            state, _ = st.train_step(state, batch, loop.step_generator(0, 100 + i, dev), spec, tx)
+            flat.step_(batch, loop.step_generator(0, 100 + i, dev), spec, tx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -4400,8 +4592,9 @@ def train_step_timing(failures, card, dev, final, cfg, batches):
     print(f"train step: profiled {n_prof} steps: {wall / n_prof * 1e3:.2f} ms a step under the "
           f"profiler, card busy {busy / n_prof * 1e3:.2f} ms a step ({busy / wall:.1%}, idle "
           f"{1 - busy / wall:.1%}) in {n_launch:.0f} kernel launches a step "
-          f"({len(kernels)} kernels by name; {len(tree_leaves(state.params))} parameter "
-          f"leaves, each selected by the skip after one check over all of them); texture encoder "
+          f"({len(kernels)} kernels by name; {len(tree_leaves(flat.params))} parameter "
+          f"leaves in one flat buffer, updated, checked and selected by two launches); texture "
+          f"encoder "
           f"{enc / n_prof * 1e3:.2f} ms a step, {enc / busy:.1%} of the kernel time; top: "
           + "; ".join(f"{k[:48]} {v / n_prof / 1e3:.2f} ms" for k, v in top) + f" on {card}",
           flush=True)
@@ -4476,8 +4669,9 @@ def multicard_phase(failures, card, dev, step_ms, tmp):
     from mofanerf_tpu_torch.data.device_data import DeviceDataset, DeviceSamplerConfig
     from mofanerf_tpu_torch.ops import field_kernel as fk
     from mofanerf_tpu_torch.ops import serve_kernel as sk
+    from mofanerf_tpu_torch.ops.flat_adam import FlatLayout
     from mofanerf_tpu_torch.parallel import make_mesh
-    from mofanerf_tpu_torch.parallel.collectives import all_reduce_mean
+    from mofanerf_tpu_torch.parallel.collectives import all_reduce_mean_
     from mofanerf_tpu_torch.parallel.world import single_rank
     from mofanerf_tpu_torch.render.renderer import render_frame, render_frame_sharded
     from mofanerf_tpu_torch.render.serve import render_path_serve
@@ -4574,13 +4768,15 @@ def multicard_phase(failures, card, dev, step_ms, tmp):
             torch.cuda.synchronize()
             times[which].append(time.perf_counter() - t0)
         out["step_ms"] = {k: float(np.median(v)) * 1e3 for k, v in times.items()}
-        leaves = tree_leaves(state.params)
-        out["grad_bytes"] = 4 * sum(t.numel() for t in leaves)
+        # the step's one collective: its flat gradient buffer (FlatLayout, with the loss and
+        # the fine MSE in two elements at its end)
+        flat = FlatLayout.of(tree_leaves(state.params)).zeros(dev, extra=2)
+        out["grad_bytes"] = 4 * flat.numel()
         ar = []
         for _ in range(5):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            all_reduce_mean(leaves, mesh)
+            all_reduce_mean_(flat, mesh)
             torch.cuda.synchronize()
             ar.append(time.perf_counter() - t0)
         out["world1_all_reduce_ms"] = float(np.median(ar)) * 1e3
@@ -4898,6 +5094,9 @@ def main(argv) -> int:
     field_rows = field_kernel_phase(failures, dev)
     print(f"kernel phase (field kernel): {time.perf_counter() - t0:.1f} s", flush=True)
     layer_matmul_phase(dev)
+    t0 = time.perf_counter()
+    train_rows = train_kernels_phase(failures, dev)
+    print(f"kernel phase (train step's kernels): {time.perf_counter() - t0:.1f} s", flush=True)
     if kernel_only:
         return 1 if failures else 0
     t0 = time.perf_counter()
@@ -4921,7 +5120,7 @@ def main(argv) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as work:
         t0 = time.perf_counter()
-        train_launches, final, train_cfg, batches, render_flags = train_phase(
+        train_launches, final, train_cfg, batches, render_flags, train_kernels = train_phase(
             failures, card, dev, work)
         print(f"path phase (training): {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -5195,7 +5394,36 @@ def main(argv) -> int:
         "bytes_a_row": RAYS_BYTES_A_ROW,
         "library_ms": None,
         "path_60": rays_rows["60x512x512"],
-    }]}), flush=True)
+    }] + [{
+        # no TPU kernel: XLA fused the ReLU's backward and the bias's reduction into its dots
+        "name": f"relu_grad[{name} {row['rows']}x{row['width']}]",
+        "route": "cuda",
+        "source": "mofanerf_tpu_torch/ops/fused_linear.py",
+        "replaces": None,
+        "launches": train_kernels["relu_grad"],
+        "launches_by_path": {"train": train_kernels["relu_grad"]},
+        "max_abs_err": None,
+        "max_rel_err": row["max_rel_err"],
+        "ms": row["relu_grad_ms"],
+        "plain_ms": row["relu_grad_plain_ms"],
+        "bound_ms": row["relu_grad_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for name, row in train_rows["layers"].items() if name in ("coarse", "fine")] + [{
+        # no TPU kernel: XLA fused optax's per-leaf update, the check and the selects
+        "name": f"flat_adam.{kernel}[{train_rows['adam']['elements']} f32]",
+        "route": "cuda",
+        "source": "mofanerf_tpu_torch/ops/flat_adam.py",
+        "replaces": None,
+        "launches": train_kernels[kernel],
+        "launches_by_path": {"train": train_kernels[kernel]},
+        "max_abs_err": train_rows["adam"]["max_abs_err"],
+        "ms": train_rows["adam"][f"{kernel}_ms"],
+        "plain_ms": train_rows["adam"][f"{kernel}_plain_ms"],
+        "bound_ms": train_rows["adam"][f"{kernel}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    } for kernel in ("adam", "finite")]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

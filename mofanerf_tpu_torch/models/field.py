@@ -16,8 +16,10 @@ folded biases; the view-direction contribution is folded once a ray.
 
 Params are a plain dict of f32 tensors laid out as the JAX package's param
 tree, weights [in, out], so `x @ W` and the bridge map one to one. The
-functions here are plain differentiable tensor code; the renderer's
-inference path runs the same math through `ops/field_kernel.py`.
+functions here are differentiable tensor code: on the card in bf16 each
+hidden layer is one fused op (`ops/fused_linear.py`), elsewhere plain
+PyTorch; the renderer's inference path runs the same math through
+`ops/field_kernel.py`.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from mofanerf_tpu_torch.ops.embed import embed_dim, fourier_embed
+from mofanerf_tpu_torch.ops.fused_linear import linear_relu
 from mofanerf_tpu_torch.parallel.collectives import ModelAxis, copy_to_model, gather_from_model
 from mofanerf_tpu_torch.utils.device import resolve_device
 
@@ -202,22 +205,32 @@ def _layer(pairs, b, dt, tp: ModelAxis | None = None):
     return y if tp is None else gather_from_model(y, tp)
 
 
+def _relu_layer(pairs, b, dt, tp: ModelAxis | None = None):
+    """relu(_layer(pairs, b, dt, tp)): on the card in bf16 without `tp`, one
+    fused op (ops/fused_linear.py: the bias and the ReLU in the product's
+    epilogue; the ReLU's mask and the bias gradient in one backward pass);
+    elsewhere `_layer`, then ReLU."""
+    if tp is None and dt == torch.bfloat16 and pairs[0][0].is_cuda:
+        return linear_relu(pairs, b)
+    return F.relu(_layer(pairs, b, dt, tp))
+
+
 def _trunk_apply(t: Params, feat_in, b0, bskip, dtype, tp: ModelAxis | None = None):
     """Run a skip trunk on per-point features with folded code biases."""
-    h = F.relu(_layer([(feat_in, t["w_feat0"])], b0, dtype, tp))
+    h = _relu_layer([(feat_in, t["w_feat0"])], b0, dtype, tp)
     for layer in t["mid"]:
-        h = F.relu(_layer([(h, layer["w"])], layer["b"], dtype, tp))
-    h = F.relu(_layer([(feat_in, t["w_skip_feat"]), (h, t["w_skip_h"])], bskip, dtype, tp))
+        h = _relu_layer([(h, layer["w"])], layer["b"], dtype, tp)
+    h = _relu_layer([(feat_in, t["w_skip_feat"]), (h, t["w_skip_h"])], bskip, dtype, tp)
     for layer in t["post"]:
-        h = F.relu(_layer([(h, layer["w"])], layer["b"], dtype, tp))
+        h = _relu_layer([(h, layer["w"])], layer["b"], dtype, tp)
     return h
 
 
 def _xyz_apply(params: Params, cond: Params, pts_embed, dt, tp: ModelAxis | None = None):
     xyz = params["xyz"]
-    h = F.relu(_layer([(pts_embed.to(dt), xyz["w_pts"])], cond["xyz_b"], dt, tp))
+    h = _relu_layer([(pts_embed.to(dt), xyz["w_pts"])], cond["xyz_b"], dt, tp)
     for layer in xyz["layers"]:
-        h = F.relu(_layer([(h, layer["w"])], layer["b"], dt, tp))
+        h = _relu_layer([(h, layer["w"])], layer["b"], dt, tp)
     return h
 
 

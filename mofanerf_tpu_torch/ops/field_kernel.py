@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from mofanerf_tpu_torch.models.field import FieldConfig
+from mofanerf_tpu_torch.utils.device import aligned
 
 Params = Dict[str, Any]
 
@@ -122,10 +123,11 @@ def kernel_config(cfg: FieldConfig) -> FieldConfig:
 
 
 def _pad(t: torch.Tensor, shape, dtype) -> torch.Tensor:
-    """`t` cast to `dtype` in the leading corner of zeros of `shape`."""
+    """`t` cast to `dtype` in the leading corner of zeros of `shape`; `t` itself
+    where that changes nothing and it starts on a 16-byte boundary, else a copy."""
     t = t.to(dtype)
     if tuple(t.shape) == tuple(shape):
-        return t
+        return aligned(t)
     out = t.new_zeros(shape)
     out[tuple(slice(0, n) for n in t.shape)] = t
     return out
@@ -540,7 +542,8 @@ _COMPUTE_DTYPE_OPERANDS = ("w_stack", "w_pts", "w_view", "w_out", "w_tiles")
 
 def _check_operands(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
                     samples_per_ray: int) -> None:
-    """Device, dtype, shape and contiguity of everything the kernel reads."""
+    """Device, dtype, shape, contiguity and 16-byte alignment of everything the
+    kernel reads."""
     if samples_per_ray < 1:
         raise ValueError(f"samples_per_ray must be >= 1, got {samples_per_ray}")
     n_rows, n_rays = pts_embed.shape[0], dir_feat.shape[0]
@@ -559,6 +562,8 @@ def _check_operands(fused: FusedParams, pts_embed, dir_feat, cfg: FieldConfig,
             raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def _lib():
@@ -641,6 +646,7 @@ def fused_field_apply(fused: FusedParams, pts_embed: torch.Tensor, dir_feat: tor
     dev = pts_embed.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_field_apply runs on cuda or cpu, not {dev}")
+    pts_embed, dir_feat = aligned(pts_embed), aligned(dir_feat)
     _check_operands(fused, pts_embed, dir_feat, cfg, samples_per_ray)
     if dev.type == "cpu":
         return fused_field_apply_ref(fused, pts_embed, dir_feat, cfg, samples_per_ray)

@@ -39,6 +39,7 @@ from mofanerf_tpu_torch.models.student import StudentConfig
 from mofanerf_tpu_torch.ops.bounds import DEFAULT_AABB_MAX, DEFAULT_AABB_MIN, ray_aabb_interval
 from mofanerf_tpu_torch.ops.embed import embed_freqs, fourier_embed
 from mofanerf_tpu_torch.ops.field_kernel import TILE_K, _swizzle
+from mofanerf_tpu_torch.utils.device import aligned
 
 Params = Dict[str, Any]
 
@@ -208,8 +209,9 @@ def untile_student_weights(w_tiles: torch.Tensor, cfg: StudentConfig) -> Dict[st
 def pack_student(params: Params, cfg: StudentConfig) -> StudentPack:
     """A folded, skipless student's params -> the kernel's weight operands: the
     matrices cast to the compute dtype and the biases to f32, the hidden layers
-    stacked, and the wgmma design's image tiled. A copy of every weight: do it
-    once a frame or path, not once a packet."""
+    stacked, and the wgmma design's image tiled; every operand starts on a
+    16-byte boundary (a leaf that does not is copied). A copy of every weight:
+    do it once a frame or path, not once a packet."""
     _check_config(cfg)
     if "cond" in params:
         raise ValueError("conditioned student: fold the code first "
@@ -218,24 +220,29 @@ def pack_student(params: Params, cfg: StudentConfig) -> StudentPack:
     W = cfg.width
     dev = params["input"]["w"].device
     layers = params["layers"]
+
+    def operand(t, dtype):
+        # the kernels load 16 bytes at a time: a leaf that is a view at another offset is copied
+        return aligned(t.to(dtype).contiguous())
+
     w = {
-        "w0": params["input"]["w"].to(dt).contiguous(),
-        "wl": (torch.stack([l["w"] for l in layers]).to(dt).contiguous() if layers
+        "w0": operand(params["input"]["w"], dt),
+        "wl": (operand(torch.stack([l["w"] for l in layers]), dt) if layers
                else torch.zeros((0, W, W), dtype=dt, device=dev)),
-        "wsig": params["sigma"]["w"].to(dt).contiguous(),
-        "wfeat": params["feat"]["w"].to(dt).contiguous(),
-        "wrgb": params["rgb"]["w"].to(dt).contiguous(),
+        "wsig": operand(params["sigma"]["w"], dt),
+        "wfeat": operand(params["feat"]["w"], dt),
+        "wrgb": operand(params["rgb"]["w"], dt),
     }
     tiles = (tile_student_weights(**w, cfg=cfg) if takes_tiles(cfg)
              else torch.zeros((0, TILE_K), dtype=dt, device=dev))
     return StudentPack(
-        b0=params["input"]["b"].to(f32).contiguous(),
-        bl=(torch.stack([l["b"] for l in layers]).to(f32).contiguous() if layers
+        b0=operand(params["input"]["b"], f32),
+        bl=(operand(torch.stack([l["b"] for l in layers]), f32) if layers
             else torch.zeros((0, W), dtype=f32, device=dev)),
-        bsig=params["sigma"]["b"].to(f32).contiguous(),
-        bfeat=params["feat"]["b"].to(f32).contiguous(),
-        brgb=params["rgb"]["b"].to(f32).contiguous(),
-        w_dirs=params["view"]["w_dirs"].to(f32).contiguous(), w_tiles=tiles, **w)
+        bsig=operand(params["sigma"]["b"], f32),
+        bfeat=operand(params["feat"]["b"], f32),
+        brgb=operand(params["rgb"]["b"], f32),
+        w_dirs=operand(params["view"]["w_dirs"], f32), w_tiles=tiles, **w)
 
 
 def _as_pack(params, cfg: StudentConfig) -> StudentPack:
@@ -339,13 +346,18 @@ def render_rays_bounded_fused_ref(
     return _split(_serve_ref(pack, aux, dirf, cfg, rays_o, rays_d, n_samples, white_bkgd))
 
 
-def _check_cuda_operand(name: str, t: torch.Tensor, dtype, device) -> None:
+def _check_cuda_operand(name: str, t: torch.Tensor, dtype, device,
+                        aligned16: bool = False) -> None:
+    """Device, dtype and contiguity of an operand; with `aligned16` (the
+    pack's operands, which `pack_student` aligns), its 16-byte alignment."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the rays on {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+    if aligned16 and t.data_ptr() % 16:
+        raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 @functools.lru_cache(maxsize=None)
@@ -415,7 +427,7 @@ def _serve_cuda(pack: StudentPack, aux, dirf, cfg: StudentConfig, rays_o, rays_d
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         _check_cuda_operand(name, t, dt if name in _COMPUTE_DTYPE_OPERANDS
-                            else torch.float32, dev)
+                            else torch.float32, dev, aligned16=name in StudentPack._fields)
 
     code = _DTYPE_CODE[dt]
     if _library_uses_wgmma(code, W, cfg.depth, cfg.multires, n_samples) != wgmma:

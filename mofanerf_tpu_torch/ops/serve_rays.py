@@ -91,10 +91,8 @@ def _serve_rays_cuda(pack: StudentPack, cfg, H, W, K, poses, near, far, lo, hi,
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape or (name == "poses" and shape[1] not in (3, 4)):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        _check_cuda_operand(name, t, torch.float32, dev)
-    if pack.w_dirs.data_ptr() % 16:
         # the kernel copies w_dirs 16 bytes at a time: an offset view would fault
-        raise ValueError("w_dirs does not start on a 16-byte boundary")
+        _check_cuda_operand(name, t, torch.float32, dev, aligned16=name == "w_dirs")
     if n_rows < n:
         raise ValueError(f"{n_rows} rows cannot hold {n} rays")
     f32 = dict(dtype=torch.float32, device=dev)

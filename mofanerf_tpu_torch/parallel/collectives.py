@@ -10,7 +10,8 @@ floats are summed in f32 and rounded back once.
 
 - rows over `data`: `data_rows` (the rank's contiguous block of a padded
   stream) and `gather_blocks` (the blocks back, every rank the whole);
-- gradients over `data`: `all_reduce_mean`, one flat buffer for every leaf;
+- gradients over `data`: `all_reduce_mean_`, in place on the one flat buffer of
+  every leaf;
 - the fine field's columns over `model`: the autograd functions
   `copy_to_model` (forward the identity, backward the sum over model) and
   `gather_from_model` (forward the columns gathered, backward the rank's
@@ -90,19 +91,11 @@ def gather_blocks(items: Sequence[Tuple[torch.Tensor, int]], mesh, axis: str = "
     return out
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh, axis: str = "data"
-                    ) -> List[torch.Tensor]:
-    """The mean of each tensor over `axis`, through one flat f32 buffer (one
-    collective for every leaf of a gradient tree)."""
-    n = axis_size(mesh, axis)
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+def all_reduce_mean_(flat: torch.Tensor, mesh, axis: str = "data") -> torch.Tensor:
+    """The mean of the f32 buffer `flat` over `axis`, in place: one collective
+    for every leaf of a flat gradient buffer (ops/flat_adam.py). Returns `flat`."""
     dist.all_reduce(flat, group=_group(mesh, axis))
-    flat = flat / n
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
-        at += t.numel()
-    return out
+    return flat.div_(axis_size(mesh, axis))
 
 
 def all_true(flag: torch.Tensor, group) -> torch.Tensor:

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mofanerf_tpu_torch.parallel.collectives import all_reduce_mean, model_axis
+from mofanerf_tpu_torch.ops.flat_adam import FlatLayout
+from mofanerf_tpu_torch.parallel.collectives import all_reduce_mean_, model_axis
 from mofanerf_tpu_torch.parallel.mesh import (axis_size, gather_params, make_mesh,
                                               make_multihost_mesh, shard_params,
                                               shard_params_rules, sharded_leaves)
@@ -326,14 +327,15 @@ def _train(t, mesh, dev):
         ok.append(m["step_ok"])
     params = state.params if rules is None else gather_params(state.params, rules, mesh)
     leaves = tree_leaves(state.params)
+    flat = FlatLayout.of(leaves).pack(leaves)
     return {"loss": torch.stack(loss).cpu(), "psnr": torch.stack(psnr).cpu(),
             "ok": torch.stack(ok).cpu(), "params": _cpu(params), "grads0": _cpu(grads),
             "count": int(state.opt_state.count), "step": int(state.step),
             "step_sec": _median_sec(lambda: train_step(state0, batches[0], gen(0), spec, tx,
                                                        draws=draws[0], mesh=mesh),
                                     t.get("timed", 0), dev),
-            "all_reduce_sec": _median_sec(lambda: all_reduce_mean(leaves, mesh), 3, dev),
-            "all_reduce_bytes": 4 * sum(x.numel() for x in leaves)}
+            "all_reduce_sec": _median_sec(lambda: all_reduce_mean_(flat, mesh), 3, dev),
+            "all_reduce_bytes": 4 * flat.numel()}
 
 
 def _chunk(t, mesh, dev):

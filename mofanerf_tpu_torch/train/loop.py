@@ -4,9 +4,10 @@ the host-data path).
 Each iteration picks a random training image, reads the target and the
 identity's UV map (cached on the card after its first read), draws
 landmark-biased ray coordinates (a centre crop during `precrop_iters`),
-and runs one `train_step`; on their intervals it logs, checkpoints and
-renders a held-out image and the orbit through the inference renderer
-(kernel B1 on the card), as PNGs. Batches are assembled by `make_batch` on
+and runs one step (train/state.py: the run's state copied once into flat
+buffers, `FlatTrainState`, stepped in place); on their intervals it logs,
+checkpoints and renders a held-out image and the orbit through the
+inference renderer (kernel B1 on the card), as PNGs. Batches are assembled by `make_batch` on
 a prefetch thread while the card runs the previous step.
 
 With `i_grid > 0` the loop keeps an occupancy grid of the coarse field
@@ -45,8 +46,8 @@ from mofanerf_tpu_torch.ops.rays import get_rays_at
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 prepare_conditioning, render_frame, render_path)
 from mofanerf_tpu_torch.train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
-from mofanerf_tpu_torch.train.state import (Batch, create_train_state, make_optimizer,
-                                            train_step)
+from mofanerf_tpu_torch.train.state import (Batch, FlatTrainState, create_train_state,
+                                            make_optimizer)
 from mofanerf_tpu_torch.utils import profiling
 from mofanerf_tpu_torch.utils.device import resolve_device, to_device
 from mofanerf_tpu_torch.utils.image_io import write_png
@@ -177,8 +178,11 @@ def train(cfg: Config, n_iters: Optional[int] = None, seed: int = 0, device="cud
 
     t_last, i_last = time.perf_counter(), start
     batches = Prefetcher(sample, depth=2).iterate(start, n_total)
+    # the run's one copy of the state into flat buffers, updated in place step by step
+    flat = FlatTrainState(state)
+    state = flat.state()
     for i, batch in zip(range(start, n_total), batches):
-        state, metrics = train_step(state, batch, step_generator(seed, i, dev), spec, tx)
+        metrics = flat.step_(batch, step_generator(seed, i, dev), spec, tx)
 
         if grid is not None and (i + 1) >= cfg.grid_warmup and (i + 1) % cfg.i_grid == 0:
             grid, density_ema = _update_grid(cfg, spec, state.params, batch, grid, density_ema)
@@ -245,16 +249,19 @@ def train_chunk_device_data(state, store: DeviceDataset, K: torch.Tensor, i0: in
     no host read: step i's batch drawn on the device from
     device_generator(seed, i, 0), its render's draws from (seed, i, 1).
     Under `mesh` every rank draws the same whole batch and trains on its rows
-    (train_step(mesh=)). Returns (state, the last step's metrics)."""
+    (train_step(mesh=)). The chunk copies `state` once into flat buffers of
+    its own and updates those in place (FlatTrainState); `state` is left as
+    it was. Returns (state, the last step's metrics)."""
     dev = store.images.device
     metrics = None
     with profiling.annotate("mofanerf.train.chunk"):
+        flat = FlatTrainState(state)
         for i in range(i0, i0 + n_steps):
             with profiling.annotate("mofanerf.train.sample"):
                 batch = sample_batch_device(store, K, i, scfg, device_generator(seed, i, 0, dev))
                 draws = device_generator(seed, i, 1, dev)
-            state, metrics = train_step(state, batch, draws, spec, tx, mesh=mesh)
-    return state, metrics
+            metrics = flat.step_(batch, draws, spec, tx, mesh=mesh)
+    return flat.state(), metrics
 
 
 def _train_device_data(cfg, spec, state, tx, ds, K, landmarks, logger, exp_dir, grid,

@@ -15,8 +15,13 @@ count and the moments `mu`, `nu`. `optax.adam(learning_rate=schedule)`
 counts updates itself, and a skipped step reverts the whole optimiser
 state, so the learning rate and the bias correction of an update follow
 the number of accepted updates, while `TrainState.step` counts every step.
-The skip of a non-finite step is a select on the device over every leaf,
-with no host synchronisation.
+Params, moments and gradients each live in one flat f32 buffer
+(ops/flat_adam.py), so the update, the finite check and the skip of a
+non-finite step are two launches on the device, with no host
+synchronisation. A lone `train_step` copies the state it is given into
+buffers of its own (`FlatTrainState`) and updates those in place; the
+training loops (train/loop.py) copy once, a run or a chunk, and step in
+place.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from mofanerf_tpu_torch.parallel.collectives import (ModelAxis, all_reduce_mean, all_true,
+from mofanerf_tpu_torch.ops import flat_adam
+from mofanerf_tpu_torch.ops.flat_adam import FlatLayout
+from mofanerf_tpu_torch.parallel.collectives import (ModelAxis, all_reduce_mean_, all_true,
                                                      data_rows, model_axis)
 from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_code_for,
                                                 init_model_params, prepare_conditioning,
@@ -33,7 +40,7 @@ from mofanerf_tpu_torch.render.renderer import (MoFaNeRF, encode_texture, exp_co
 from mofanerf_tpu_torch.utils import profiling
 from mofanerf_tpu_torch.utils.device import f32_products, resolve_device
 from mofanerf_tpu_torch.utils.metrics import img2mse, mse2psnr
-from mofanerf_tpu_torch.utils.tree import map_tree, tree_leaves, tree_unflatten
+from mofanerf_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -63,7 +70,8 @@ def lr_at(step, lrate: float = 5e-5, lrate_decay: int = 250) -> torch.Tensor:
 class Adam:
     """Adam with torch's defaults (betas 0.9 / 0.999, eps 1e-8) on the
     decaying schedule, as optax.adam computes it; `lrate_decay=None` keeps
-    the rate constant at `lrate`, as `optax.adam(lrate)` (distillation)."""
+    the rate constant at `lrate`, as `optax.adam(lrate)` (distillation).
+    Its state and its updates live in flat buffers (ops/flat_adam.py)."""
 
     lrate: float = 5e-5
     lrate_decay: int | None = 250
@@ -72,9 +80,12 @@ class Adam:
     eps: float = 1e-8
 
     def init(self, params: Params) -> AdamState:
-        count = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
-        return AdamState(count, map_tree(torch.zeros_like, params),
-                         map_tree(torch.zeros_like, params))
+        leaves = tree_leaves(params)
+        layout = FlatLayout.of(leaves)
+        dev = leaves[0].device
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        return AdamState(count, tree_unflatten(params, layout.views(layout.zeros(dev))),
+                         tree_unflatten(params, layout.views(layout.zeros(dev))))
 
     def rate(self, count: torch.Tensor):
         """The learning rate of the update that follows `count` accepted ones."""
@@ -82,22 +93,26 @@ class Adam:
             return self.lrate
         return lr_at(count, self.lrate, self.lrate_decay)
 
+    def apply_(self, p, mu, nu, g, count, flag=None) -> None:
+        """One update of flat buffers (FlatLayout) in place: params `p`, moments
+        `mu`, `nu` and `count` advance where `flag` (an int32 scalar, see
+        flat_adam.all_finite) is non-zero or None, and keep their values where
+        it is 0."""
+        t = (count + 1).to(torch.float32)
+        bc1, bc2 = 1 - self.b1 ** t, 1 - self.b2 ** t   # f32 on the device: no host round trip
+        flat_adam.adam_(p, mu, nu, g, count, -self.rate(count), bc1, bc2, flag,
+                        self.b1, self.b2, self.eps)
+
     def update(self, grads, state: AdamState, params):
-        """One update of leaf lists (tree_leaves order): returns (new params,
-        new mu, new nu, new count)."""
-        b1, b2 = self.b1, self.b2
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
-                                torch._foreach_mul(tree_leaves(state.mu), b1))
-        sq = torch._foreach_mul(grads, grads)
-        nu = torch._foreach_add(torch._foreach_mul(sq, 1 - b2),
-                                torch._foreach_mul(tree_leaves(state.nu), b2))
-        count = state.count + 1
-        t = count.to(torch.float32)
-        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t   # f32 on the device: no host round trip
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), self.eps)
-        upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        upd = torch._foreach_mul(upd, -self.rate(state.count))
-        return torch._foreach_add(params, upd), mu, nu, count
+        """One update of leaf lists (tree_leaves order), out of place: returns
+        (new params, new mu, new nu, new count), the leaves views of new flat
+        buffers."""
+        layout = FlatLayout.of(params)
+        p, mu, nu, g = (layout.pack(x) for x in (params, tree_leaves(state.mu),
+                                                  tree_leaves(state.nu), grads))
+        count = state.count.clone()
+        self.apply_(p, mu, nu, g, count)
+        return layout.views(p), layout.views(mu), layout.views(nu), count
 
 
 def make_optimizer(lrate: float = 5e-5, lrate_decay: int = 250) -> Adam:
@@ -158,32 +173,93 @@ def _rank_rows(batch: Batch, generator, spec: MoFaNeRF, draws, mesh):
 
 
 def batch_grads(params: Params, batch: Batch, generator: torch.Generator | None,
-                spec: MoFaNeRF, draws: Dict[str, torch.Tensor] | None = None, mesh=None):
+                spec: MoFaNeRF, draws: Dict[str, torch.Tensor] | None = None, mesh=None,
+                into=None):
     """(loss, fine MSE, gradients in tree_leaves order) of a batch, detached.
-    Under `mesh` (see train_step) of this rank's rows, then averaged over
-    `data` in one flat all_reduce."""
+    The gradients are views of one flat f32 buffer (FlatLayout of the
+    leaves, with two elements to spare at its end): `into`'s `(buffer, its
+    leaf views)` when given, else a new one. Under `mesh` (see train_step)
+    of this rank's rows, then averaged over `data` with the loss and the
+    fine MSE in one all_reduce of that buffer."""
     tp = model_axis(mesh)
     if mesh is not None:
         batch, draws = _rank_rows(batch, generator, spec, draws, mesh)
         generator = None
+    leaves = tree_leaves(params)
+    if into is None:
+        layout = FlatLayout.of(leaves)
+        flat = layout.zeros(leaves[0].device, extra=2)
+        into = flat, layout.views(flat)
+    flat, views = into
     with f32_products():
-        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        live = [p.detach().requires_grad_(True) for p in leaves]
         loss, img_loss = loss_fn(tree_unflatten(params, live), spec, batch, generator, draws, tp)
         with profiling.annotate("mofanerf.train.backward"):
-            grads = list(torch.autograd.grad(loss, live, allow_unused=True,
-                                             materialize_grads=True))
+            grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+            torch._foreach_copy_(views, list(grads))
     loss, img_loss = loss.detach(), img_loss.detach()
     if mesh is not None:
         with profiling.annotate("mofanerf.train.backward"):
-            *grads, loss, img_loss = all_reduce_mean(grads + [loss, img_loss], mesh)
-    return loss, img_loss, grads
+            flat[-2:].copy_(torch.stack([loss, img_loss]))
+            all_reduce_mean_(flat, mesh)
+            loss, img_loss = flat[-2:].clone().unbind()
+    return loss, img_loss, views
+
+
+class FlatTrainState:
+    """A TrainState copied into flat buffers that it owns (ops/flat_adam.py:
+    params, Adam's moments, the gradients), which `step_` updates in place.
+    The state it was made from is never written; `state()` hands out a
+    TrainState whose leaves are views of its buffers."""
+
+    def __init__(self, state: TrainState):
+        leaves = tree_leaves(state.params)
+        self.like = state.params
+        self.layout = layout = FlatLayout.of(leaves)
+        opt = state.opt_state
+        self.p = layout.pack(leaves)
+        self.mu = layout.pack(tree_leaves(opt.mu))
+        self.nu = layout.pack(tree_leaves(opt.nu))
+        # with two elements to spare for the loss and fine MSE batch_grads reduces under a mesh
+        g_ext = layout.zeros(self.p.device, extra=2)
+        self.g, self.into = g_ext[:layout.size], (g_ext, layout.views(g_ext))
+        self.params = tree_unflatten(state.params, layout.views(self.p))
+        self.count = opt.count.clone()
+        self.step = state.step.clone()
+        self.flag = torch.ones((), dtype=torch.int32, device=self.p.device)
+
+    def state(self) -> TrainState:
+        views = lambda flat: tree_unflatten(self.like, self.layout.views(flat))  # noqa: E731
+        return TrainState(views(self.p), AdamState(self.count, views(self.mu), views(self.nu)),
+                          self.step)
+
+    def step_(self, batch: Batch, generator: torch.Generator | None, spec: MoFaNeRF, tx: Adam,
+              skip_nonfinite: bool = True, draws: Dict[str, torch.Tensor] | None = None,
+              mesh=None):
+        """One optimisation step in place (see train_step); returns its metrics."""
+        tp = model_axis(mesh)
+        loss, img_loss, _ = batch_grads(self.params, batch, generator, spec, draws, mesh,
+                                        into=self.into)
+        metrics = {"loss": loss, "psnr": mse2psnr(img_loss)}
+        with profiling.annotate("mofanerf.train.optimizer"):
+            flag = None
+            if skip_nonfinite:
+                flag = flat_adam.all_finite(self.g, loss, self.flag)
+                if tp is not None:   # the model ranks hold other blocks of the fine field
+                    flag = all_true(flag != 0, tp.group).to(torch.int32)
+                metrics["step_ok"] = flag != 0
+            tx.apply_(self.p, self.mu, self.nu, self.g, self.count, flag)
+        self.step.add_(1)
+        return metrics
 
 
 def train_step(state: TrainState, batch: Batch, generator: torch.Generator | None,
                spec: MoFaNeRF, tx: Adam, skip_nonfinite: bool = True,
                draws: Dict[str, torch.Tensor] | None = None, mesh=None):
     """One optimisation step. Returns (new_state, metrics), all on the
-    params' device; nothing is read back to the host.
+    params' device; nothing is read back to the host. `state` is left as it
+    was: the step copies it into flat buffers of its own (FlatTrainState),
+    and the new state's leaves are views of those.
 
     skip_nonfinite: when the loss or any gradient is non-finite, keep the
     old params and optimiser state (count included) and only advance
@@ -196,29 +272,7 @@ def train_step(state: TrainState, batch: Batch, generator: torch.Generator | Non
     the fine MSE are averaged over `data` in one flat all_reduce before Adam,
     so that every rank takes the same step and the same skip. State whose
     fine field is in model shards (shard_params, Adam's moments alike) runs
-    it tensor-parallel over `model`."""
-    leaves = tree_leaves(state.params)
-    tp = model_axis(mesh)
-    loss, img_loss, grads = batch_grads(state.params, batch, generator, spec, draws, mesh)
-    metrics = {"loss": loss, "psnr": mse2psnr(img_loss)}
-    with profiling.annotate("mofanerf.train.optimizer"):
-        new_p, new_mu, new_nu, count = tx.update(grads, state.opt_state, leaves)
-        if skip_nonfinite:
-            # one check over a flat copy of every gradient: a check a leaf costs
-            # a few launches a leaf (isfinite is several kernels on the card)
-            finite = torch.isfinite(torch.cat([g.reshape(-1) for g in grads])).all()
-            ok = torch.isfinite(loss) & finite
-            if tp is not None:   # the model ranks hold other blocks of the fine field
-                ok = all_true(ok, tp.group)
-
-            def pick(new, old):
-                return [torch.where(ok, n, o) for n, o in zip(new, old)]
-
-            new_p = pick(new_p, leaves)
-            new_mu = pick(new_mu, tree_leaves(state.opt_state.mu))
-            new_nu = pick(new_nu, tree_leaves(state.opt_state.nu))
-            count = torch.where(ok, count, state.opt_state.count)
-            metrics["step_ok"] = ok
-    opt = AdamState(count, tree_unflatten(state.opt_state.mu, new_mu),
-                    tree_unflatten(state.opt_state.nu, new_nu))
-    return TrainState(tree_unflatten(state.params, new_p), opt, state.step + 1), metrics
+    it tensor-parallel over `model`, each rank's shards in its own buffers."""
+    flat = FlatTrainState(state)
+    metrics = flat.step_(batch, generator, spec, tx, skip_nonfinite, draws, mesh)
+    return flat.state(), metrics

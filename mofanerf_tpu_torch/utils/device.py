@@ -33,6 +33,14 @@ def to_device(x, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it where it does not start on a 16-byte boundary. The
+    CUDA kernels load their operands 16 bytes at a time, and a view at another
+    offset (a leaf of a flat parameter buffer, say) would fault with a
+    misaligned address; a new allocation starts on a 256-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @contextlib.contextmanager
 def f32_products():
     """f32 matrix products and convolutions in full f32 (TF32 off in cuBLAS
